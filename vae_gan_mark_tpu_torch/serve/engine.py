@@ -1,0 +1,129 @@
+"""Inference engine: fixed-size batches through the generator, and the
+full-image path (crop the quad, generate, paste back).
+
+Inputs and outputs are NHWC numpy arrays, as in the JAX package's engine.
+Requests of any size go through in chunks of ``batch_size`` with the tail
+padded, so the GRU kernel and the convolutions always see one shape.
+
+The reparameterisation noise of the chunk that starts at request row
+``start`` comes from a CPU ``torch.Generator`` seeded from ``(seed, start)``
+(the counterpart of ``fold_in(rng, start)``) and is then moved to the
+device, so one seed gives the same noise on every device.
+
+The checkpoint format with ``from_checkpoint`` and the serve CLI come with
+the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence, Union
+
+import numpy as np
+import torch
+
+from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
+from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
+from vae_gan_mark_tpu_torch.ops.warp import (
+    perspective_crop_batch, perspective_unwarp)
+
+
+def chunk_seed(seed: int, start: int) -> int:
+    """A 63-bit seed for the chunk starting at request row ``start``."""
+    state = np.random.SeedSequence([seed, start]).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+class InferenceEngine:
+    """Fixed-batch generator serving on one device.
+
+    ``weights`` is a ``VAEGANGenerator`` or its ``state_dict``. ``device``
+    defaults to ``"cuda"`` and raises when no card is present: it never runs
+    on the CPU unless asked to.
+    """
+
+    def __init__(self, cfg: VariantConfig,
+                 weights: Union[VAEGANGenerator, Mapping[str, torch.Tensor]],
+                 batch_size: int = 16, seed: int = 0,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"InferenceEngine(device={str(device)!r}): no CUDA device "
+                "is available; pass device='cpu' to run on the CPU")
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.seed = seed
+        self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
+        if isinstance(weights, VAEGANGenerator):
+            model = weights
+        else:
+            model = VAEGANGenerator(cfg)
+            model.load_state_dict(weights)
+        self.model = model.to(self.device).eval()
+
+    # ------------------------------------------------------------------
+    def _pad(self, arr: np.ndarray) -> np.ndarray:
+        n = arr.shape[0]
+        if n == self.batch_size:
+            return arr
+        pad = [(0, self.batch_size - n)] + [(0, 0)] * (arr.ndim - 1)
+        return np.pad(arr, pad)
+
+    def noise(self, start: int) -> torch.Tensor:
+        """The (batch_size, 1, 1, z_ch) float32 noise of the chunk at
+        ``start``, on the CPU."""
+        gen = torch.Generator().manual_seed(chunk_seed(self.seed, start))
+        return torch.randn((self.batch_size, 1, 1, self.cfg.z_ch),
+                           generator=gen, dtype=torch.float32)
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.tensor(arr, device=self.device)    # a copy
+
+    @torch.no_grad()
+    def generate(self, ru: np.ndarray, mask: np.ndarray,
+                 texts: Sequence[str]) -> np.ndarray:
+        """ru (N, H, W, 3), mask (N, H, W, 1) float in [0, 1]; returns the
+        (N, H, W, 3) float32 patches."""
+        n = ru.shape[0]
+        texts = list(texts)
+        outs = []
+        for start in range(0, n, self.batch_size):
+            end = min(start + self.batch_size, n)
+            m = end - start
+            tokens = self.tokenizer.encode(
+                texts[start:end] + [""] * (self.batch_size - m))
+            recon, _, _ = self.model(
+                self._to_device(self._pad(np.asarray(ru[start:end],
+                                                     np.float32))),
+                self._to_device(self._pad(np.asarray(mask[start:end],
+                                                     np.float32))),
+                self._to_device(tokens.astype(np.int64)),
+                eps=self.noise(start).to(self.device))
+            outs.append(recon[:m].cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+    @torch.no_grad()
+    def render(self, image: np.ndarray, mask_image: np.ndarray,
+               quad: np.ndarray, text: str) -> np.ndarray:
+        """Full-image path: crop quad -> generate -> paste back. A uint8
+        image or mask is scaled to [0, 1] first."""
+        cfg = self.cfg
+        img = np.asarray(image)
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        msk = np.asarray(mask_image)
+        if msk.dtype == np.uint8:
+            msk = msk.astype(np.float32) / 255.0
+        if msk.ndim == 2:
+            msk = msk[..., None]
+        img_t = self._to_device(img)
+        quad_t = self._to_device(np.asarray(quad, np.float32))
+        ru = perspective_crop_batch(img_t[None], quad_t[None],
+                                    cfg.patch_h, cfg.patch_w)
+        mk = perspective_crop_batch(self._to_device(msk)[None], quad_t[None],
+                                    cfg.patch_h, cfg.patch_w)
+        patch = self.generate(ru.cpu().numpy(), mk.cpu().numpy(), [text])[0]
+        out = perspective_unwarp(self._to_device(patch), quad_t, img_t,
+                                 img.shape[0], img.shape[1])
+        return out.cpu().numpy()
