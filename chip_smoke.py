@@ -5,18 +5,35 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. require CUDA and print the card's name and power limit;
-2. build the GRU kernel (``vae_gan_mark_tpu_torch/csrc/gru_fwd.cu``) with
-   ``nvcc`` for ``sm_90a`` from the checkout's sources;
-3. hold the kernel against its plain PyTorch version at L=60,
+2. build the three kernels (``vae_gan_mark_tpu_torch/csrc/gru_fwd.cu``,
+   ``gru_bwd.cu``, ``conv3x3.cu``) with ``nvcc`` for ``sm_90a`` from the
+   checkout's sources, one ``nvcc`` each, all at once, and print each one's
+   registers and spills;
+3. GRU forward: hold the kernel against its plain PyTorch version at L=60,
    H in {16, 256}, B in {1, 16, 128}, both directions, float32 with TF32
    off, and time the kernel, the plain version, one ``torch.nn.GRU`` call
    (cuDNN) on the same inputs, and the bound;
-4. serve the v2 generator at full width (448x64) through
+4. GRU backward: the same shapes for dx_proj, dW_hh and db_hh against the
+   plain backward; time the backward (kernel and its two products), the
+   kernel alone, forward + backward through the autograd function, the
+   plain backward, cuDNN's backward and forward + backward, and the bound;
+5. conv3x3: hold the kernel against ``F.conv2d`` at the probe's check
+   shapes, drive it once at each of the probe's two benchmark shapes
+   (counting launches), and time it there against the plain version,
+   cuDNN's bf16 channels-last ``F.conv2d`` and the bound;
+6. serve the v2 generator at full width (448x64) through
    ``InferenceEngine(device="cuda")`` with seeded random weights: requests
    of 16, 5 and 33 patches and one full-image render, counting GRU kernel
    launches; hold the float32 output against the same engine on the CPU,
-   run once in bfloat16, and time img/s at batch 16;
-5. print the kernels' JSON line and, last, the device line.
+   run once in bfloat16, time img/s at batch 16 and profile one batch;
+7. train v2 at full width with seeded weights through the weight bridge
+   (BiGRU dropout 0.1 from a generator): 5 bf16 steps and 5 float32 steps
+   (TF32 off) at batch 16, each run with the counts at 0 before it and read
+   after (4 forward + 4 backward GRU launches per step), losses finite, the
+   spectral u and BatchNorm running statistics moved; one float32 step at
+   B=2 on the card against the CPU; bf16 img/s at batch 16 and 128; one
+   profiled step per precision by kernel class; one eval step;
+8. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -35,14 +52,22 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, dense
+# bf16 tensor cores, HBM3.
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
-# Kernel vs plain: the product's sum order differs (per-thread k slices
+# GRU kernel vs plain: the product's sum order differs (per-thread k slices
 # summed across threads vs cuBLAS), a few float32 ulps per step over 60
 # steps.
 KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
+# GRU backward vs plain: dW_hh and db_hh sum over L*B rows (up to 7680) in
+# another order; read 2.7e-5 on values up to 100 at B=128.
+BACKWARD_ATOL, BACKWARD_RTOL = 1e-4, 1e-4
+# conv3x3 vs F.conv2d: the probe's own rule, max |err| / max |ref|; bf16
+# outputs of the same float32 sums differ by one bf16 step at most.
+CONV_RULE = 5e-2
 # CUDA vs CPU generator output, both float32 with TF32 off: cuDNN and the
 # CPU take different algorithms and sum orders through ~20 conv layers
 # (read 5.4e-7 on an H100); TF32 left on would miss this limit.
@@ -50,9 +75,23 @@ DEVICE_ATOL = 1e-4
 # bfloat16 vs float32 output: bf16 keeps 8 bits of mantissa through every
 # conv, so only a loose bound on the outputs in (0, 1) holds.
 BF16_MAX_ABS, BF16_MEAN_ABS = 0.05, 0.01
+# One float32 train step, CUDA vs CPU at B=2: losses to rtol 1e-4; BN
+# running statistics and spectral u to atol 1e-5 + rtol 1e-4 (running
+# variances reach ~10). G's Adam first moments (0.5 times the clipped
+# gradient): per tensor, ||m_cuda - m_cpu|| <= 5e-2 ||m_cpu||. At full width
+# the generator's gradient moves with sum order alone: every tensor differs
+# by about 1% (L2) between the devices and by some 0.3% between one and
+# eight CPU threads, which the run measures and prints beside it (the
+# per-element limits of the tiny test miss by 40x here). The transposed
+# conv's bias ahead of the bottleneck BatchNorm has a zero gradient in exact arithmetic: both devices
+# hold rounding noise there, held to 1e-3 of the network's largest moment.
+STEP_LOSS_RTOL, STEP_BUFFER_ATOL, STEP_BUFFER_RTOL = 1e-4, 1e-5, 1e-4
+STEP_MOMENT_L2, STEP_MOMENT_ZERO = 5e-2, 1e-3
+ZERO_GRADIENT_PARAMS = ("image_vae_decoder_module.bottleneck_proc.0.bias",)
 
 L_TEXT = 60
 BATCH = 16
+TRAIN_STEPS = 5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -80,36 +119,87 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(flops: float, nbytes: float, peak_flops: float):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def gru_bound(length: int, batch: int, hidden: int):
     flops = 2 * length * batch * hidden * 3 * hidden
     nbytes = 4 * (length * batch * 3 * hidden + length * batch * hidden
                   + 3 * hidden * hidden + 3 * hidden)
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return bound(flops, nbytes, FP32_FLOPS)
 
 
-def phase_kernel(gru) -> list:
+def gru_backward_bound(length: int, batch: int, hidden: int):
+    """The backward's three products (gate pre-activations, the dh
+    recurrence, dW_hh), each 2*L*B*H*3H flops in float32; bytes: x_proj,
+    outs, their cotangent, W_hh and b_hh read, dx_proj, dW_hh, db_hh
+    written."""
+    flops = 3 * 2 * length * batch * hidden * 3 * hidden
+    nbytes = 4 * (2 * length * batch * 3 * hidden + 2 * length * batch
+                  * hidden + 2 * (3 * hidden * hidden + 3 * hidden))
+    return bound(flops, nbytes, FP32_FLOPS)
+
+
+def conv_bound(n: int, h: int, w: int, c: int):
+    flops = 2 * n * h * w * 9 * c * c
+    nbytes = 2 * (2 * n * h * w * c + 9 * c * c)
+    return bound(flops, nbytes, BF16_FLOPS)
+
+
+def gru_inputs(gen, batch: int, hidden: int):
+    scale = 1.0 / hidden ** 0.5
+    x_proj = torch.randn(L_TEXT, batch, 3 * hidden, device="cuda",
+                         generator=gen)
+    w_hh = (torch.rand(3 * hidden, hidden, device="cuda",
+                       generator=gen) * 2 - 1) * scale
+    b_hh = (torch.rand(3 * hidden, device="cuda", generator=gen) * 2 - 1) \
+        * scale
+    return x_proj, w_hh, b_hh
+
+
+def cudnn_gru(w_hh, b_hh):
+    """``torch.nn.GRU`` computing the recurrence on x_proj: an identity
+    input projection makes its x @ W_ih^T + b_ih equal x_proj (one extra
+    (3H x 3H) product per row)."""
+    hidden = w_hh.shape[1]
+    lib = torch.nn.GRU(3 * hidden, hidden).cuda()
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(torch.eye(3 * hidden))
+        lib.bias_ih_l0.zero_()
+        lib.weight_hh_l0.copy_(w_hh)
+        lib.bias_hh_l0.copy_(b_hh)
+    return lib
+
+
+def phase_build(modules) -> dict:
+    from vae_gan_mark_tpu_torch.ops.cuda_build import build_all
+
+    t0 = time.perf_counter()
+    built = build_all([m.source for m in modules])
+    seconds = time.perf_counter() - t0
+    print(f"[build] {len(built)} kernels in {seconds:.2f} s (one nvcc each, "
+          f"in parallel)", flush=True)
+    report = {}
+    for source, (lib, log) in built.items():
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        report[source.name] = dict(library=os.path.relpath(lib, ROOT),
+                                   ptxas=lines)
+        for line in lines:
+            print(f"[build] {source.name}: {line}", flush=True)
+    return dict(seconds=seconds, kernels=report)
+
+
+def phase_gru_forward(gru) -> list:
     """Kernel vs plain vs cuDNN at the GRU shapes of the serving path."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for hidden in (16, 256):
         for batch in (1, 16, 128):
-            bound = 1.0 / hidden ** 0.5
-            x_proj = torch.randn(L_TEXT, batch, 3 * hidden, device="cuda",
-                                 generator=gen)
-            w_hh = (torch.rand(3 * hidden, hidden, device="cuda",
-                               generator=gen) * 2 - 1) * bound
-            b_hh = (torch.rand(3 * hidden, device="cuda",
-                               generator=gen) * 2 - 1) * bound
-            # cuDNN on the same inputs: an identity input projection makes
-            # nn.GRU's x @ W_ih^T + b_ih equal x_proj, so it computes the
-            # same function plus one (3H x 3H) product per row.
-            lib = torch.nn.GRU(3 * hidden, hidden).cuda()
-            with torch.no_grad():
-                lib.weight_ih_l0.copy_(torch.eye(3 * hidden))
-                lib.bias_ih_l0.zero_()
-                lib.weight_hh_l0.copy_(w_hh)
-                lib.bias_hh_l0.copy_(b_hh)
+            x_proj, w_hh, b_hh = gru_inputs(gen, batch, hidden)
+            lib = cudnn_gru(w_hh, b_hh)
             for reverse in (False, True):
                 out = gru.gru_recurrence(x_proj, w_hh, b_hh, reverse)
                 torch.cuda.synchronize()
@@ -136,12 +226,150 @@ def phase_kernel(gru) -> list:
                            library_ms=library_ms, library_max_abs_err=lib_err,
                            bound_ms=bound_ms, bound_by=bound_by)
                 rows.append(row)
-                print(f"[kernel] L={L_TEXT} H={hidden:3d} B={batch:3d} "
+                print(f"[gru fwd] L={L_TEXT} H={hidden:3d} B={batch:3d} "
                       f"reverse={int(reverse)} err={err:.3e} "
                       f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"cudnn_ms={library_ms:.4f} (cudnn err {lib_err:.2e}) "
                       f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
     return rows
+
+
+def phase_gru_backward(gru) -> list:
+    """Backward kernel vs plain at every shape; timings at H=256 for the
+    training batches 16 and 128."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for hidden in (16, 256):
+        for batch in (1, 16, 128):
+            x_proj, w_hh, b_hh = gru_inputs(gen, batch, hidden)
+            for reverse in (False, True):
+                outs = gru.gru_recurrence(x_proj, w_hh, b_hh, reverse)
+                grad = torch.randn(outs.shape, device="cuda", generator=gen)
+                got = gru.gru_recurrence_backward(x_proj, w_hh, b_hh, outs,
+                                                  grad, reverse)
+                torch.cuda.synchronize()
+                ref = gru.gru_backward_plain(x_proj, w_hh, b_hh, outs, grad,
+                                             reverse)
+                errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+                ok = all(torch.allclose(a, b, atol=BACKWARD_ATOL,
+                                        rtol=BACKWARD_RTOL)
+                         for a, b in zip(got, ref))
+                check(ok, f"backward kernel vs plain H={hidden} B={batch} "
+                          f"reverse={reverse}: max abs errs (dx, dW, db) "
+                          f"{errs}")
+                row = dict(H=hidden, B=batch, reverse=reverse,
+                           max_abs_err=max(errs), errs=errs)
+                if hidden == 256 and batch in (16, 128) and not reverse:
+                    row.update(time_gru_backward(gru, x_proj, w_hh, b_hh,
+                                                 outs, grad, gen))
+                rows.append(row)
+                timing = "".join(f" {k}={row[k]:.4f}" for k in (
+                    "ms", "kernel_ms", "fwd_bwd_ms", "plain_ms", "library_ms",
+                    "library_fwd_bwd_ms", "bound_ms") if k in row)
+                print(f"[gru bwd] L={L_TEXT} H={hidden:3d} B={batch:3d} "
+                      f"reverse={int(reverse)} errs(dx,dW,db)="
+                      f"{errs[0]:.2e},{errs[1]:.2e},{errs[2]:.2e}{timing}",
+                      flush=True)
+    return rows
+
+
+def time_gru_backward(gru, x_proj, w_hh, b_hh, outs, grad, gen) -> dict:
+    length, batch, h3 = x_proj.shape
+    hidden = h3 // 3
+    ms = cuda_time_ms(lambda: gru.gru_recurrence_backward(
+        x_proj, w_hh, b_hh, outs, grad, False), 50)
+    hp_outs = torch.addmm(b_hh, outs.view(-1, hidden), w_hh.t()).view(
+        length, batch, h3)
+    kernel_ms = cuda_time_ms(lambda: gru.BACKWARD_KERNEL(
+        x_proj, hp_outs, outs, grad, w_hh, b_hh, False), 50)
+    plain_ms = cuda_time_ms(lambda: gru.gru_backward_plain(
+        x_proj, w_hh, b_hh, outs, grad, False), 5)
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x_proj, w_hh, b_hh))
+
+    def fwd_bwd():
+        gru.gru_recurrence_grad(xg, wg, bg, False).backward(grad)
+
+    fwd_bwd_ms = cuda_time_ms(fwd_bwd, 30)
+    lib = cudnn_gru(w_hh, b_hh)
+    lib_x = x_proj.clone().requires_grad_()
+    lib_params = list(lib.parameters())
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib(lib_x)[0], [lib_x] + lib_params, grad)
+
+    library_fwd_bwd_ms = cuda_time_ms(lib_fwd_bwd, 30)
+    lib_out = lib(lib_x)[0]
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        lib_out, [lib_x] + lib_params, grad, retain_graph=True), 30)
+    bound_ms, bound_by = gru_backward_bound(length, batch, hidden)
+    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                fwd_bwd_ms=fwd_bwd_ms, library_ms=library_ms,
+                library_fwd_bwd_ms=library_fwd_bwd_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def conv_inputs(gen, n, h, w, c):
+    x = torch.randn(n, h, w, c, device="cuda", generator=gen).bfloat16()
+    k = torch.randn(3, 3, c, c, device="cuda", generator=gen) / (3 * c ** 0.5)
+    return x, k
+
+
+def phase_conv(conv_probe) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    checks = []
+    for (h, w) in ((16, 32), (64, 448)):
+        for c, f in ((64, 2), (32, 4)):
+            x, k = conv_inputs(gen, 2, h, w, c)
+            y = conv_probe.conv3x3_superp(x, k, f).float()
+            torch.cuda.synchronize()
+            ref = conv_probe.conv3x3_plain(x, k).float()
+            abs_err = (y - ref).abs().max().item()
+            err = abs_err / ref.abs().max().item()
+            check(err < CONV_RULE, f"conv3x3 vs F.conv2d (2,{h},{w}) C={c} "
+                                   f"f={f}: {err}")
+            checks.append(dict(shape=[2, h, w, c], f=f, rel_err=err,
+                               max_abs_err=abs_err))
+            print(f"[conv] check (2,{h},{w}) C={c} f={f}: max|err|/max|ref| "
+                  f"= {err:.3e} (rule {CONV_RULE})", flush=True)
+
+    # The probe's benchmark shapes are this kernel's own path: counts at 0
+    # just before, read just after.
+    inputs = {name: conv_inputs(gen, n, h, w, c)
+              for name, (n, h, w, c, _) in conv_probe.PROBE_SHAPES.items()}
+    conv_probe.KERNEL.launches = 0
+    outs = {name: conv_probe.conv3x3_superp(
+        *inputs[name], conv_probe.PROBE_SHAPES[name][4])
+        for name in conv_probe.PROBE_SHAPES}
+    torch.cuda.synchronize()
+    launches = conv_probe.KERNEL.launches
+    check(launches == len(conv_probe.PROBE_SHAPES),
+          f"conv3x3 launches {launches} on the probe shapes")
+
+    rows = {}
+    for name, (n, h, w, c, f) in conv_probe.PROBE_SHAPES.items():
+        x, k = inputs[name]
+        kb = k.bfloat16()
+        ref = conv_probe.conv3x3_plain(x, kb).float()
+        err = ((outs[name].float() - ref).abs().max()
+               / ref.abs().max()).item()
+        check(err < CONV_RULE, f"conv3x3 at {name}: {err}")
+        w_cl = kb.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        x_nchw = x.permute(0, 3, 1, 2)            # channels-last strides
+        ms = cuda_time_ms(lambda: conv_probe.conv3x3_superp(x, k, f), 10)
+        plain_ms = cuda_time_ms(lambda: conv_probe.conv3x3_plain(x, kb), 5)
+        library_ms = cuda_time_ms(lambda: torch.nn.functional.conv2d(
+            x_nchw, w_cl, padding=1), 20)
+        bound_ms, bound_by = conv_bound(n, h, w, c)
+        rows[name] = dict(shape=[n, h, w, c], f=f, rel_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          tflops=2 * n * h * w * 9 * c * c / ms / 1e9)
+        print(f"[conv] {name} {(n, h, w, c)}: err {err:.3e} ms={ms:.3f} "
+              f"plain_ms={plain_ms:.3f} cudnn_bf16_ms={library_ms:.3f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"{rows[name]['tflops']:.1f} TFLOP/s", flush=True)
+    return dict(checks=checks, launches=launches, shapes=rows)
 
 
 def make_requests(cfg, n: int, seed: int):
@@ -161,7 +389,7 @@ def check_patches(out: np.ndarray, n: int, cfg, what: str) -> None:
           f"{what}: values outside [0, 1]")
 
 
-def phase_slice(gru, card: str) -> dict:
+def phase_serve(gru, card: str) -> dict:
     from vae_gan_mark_tpu_torch.config import get_config
     from vae_gan_mark_tpu_torch.serve import InferenceEngine
     from vae_gan_mark_tpu_torch.utils.port_jax import (
@@ -173,7 +401,7 @@ def phase_slice(gru, card: str) -> dict:
     state_dict = state_dict_from_jax(params, stats, cfg)
     engine = InferenceEngine(cfg, state_dict, batch_size=BATCH, seed=0,
                              device="cuda")
-    print(f"[slice] v2 {cfg.patch_w}x{cfg.patch_h} engine ready in "
+    print(f"[serve] v2 {cfg.patch_w}x{cfg.patch_h} engine ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     requests = {n: make_requests(cfg, n, seed=n) for n in (16, 5, 33)}
@@ -183,7 +411,7 @@ def phase_slice(gru, card: str) -> dict:
     quad = np.array([[300, 200], [900, 230], [890, 330], [290, 300]],
                     np.float32)
 
-    # The main path: counts start at 0 here and are read right after.
+    # The serving path: counts start at 0 here and are read right after.
     gru.KERNEL.launches = 0
     outs = {n: engine.generate(*requests[n]) for n in (16, 5, 33)}
     rendered = engine.render(image, mask_image, quad, "NEW COLLECTION")
@@ -196,7 +424,7 @@ def phase_slice(gru, card: str) -> dict:
           bool(np.all(np.isfinite(rendered))), "render: bad output")
     check(launches == 4 * chunks,
           f"GRU kernel launches {launches}, expected 4 x {chunks} chunks")
-    print(f"[slice] generate 16/5/33 + render: {chunks} chunks, "
+    print(f"[serve] generate 16/5/33 + render: {chunks} chunks, "
           f"{launches} GRU kernel launches", flush=True)
 
     # Same engine on the CPU with the same seed, hence the same eps.
@@ -206,7 +434,7 @@ def phase_slice(gru, card: str) -> dict:
     device_err = float(np.abs(cpu_out - outs[5]).max())
     check(device_err <= DEVICE_ATOL,
           f"CUDA vs CPU float32 max abs err {device_err} > {DEVICE_ATOL}")
-    print(f"[slice] CUDA vs CPU float32 (TF32 off): max abs err "
+    print(f"[serve] CUDA vs CPU float32 (TF32 off): max abs err "
           f"{device_err:.3e} (limit {DEVICE_ATOL})", flush=True)
     del cpu_engine
 
@@ -219,7 +447,7 @@ def phase_slice(gru, card: str) -> dict:
     bf16_max, bf16_mean = float(diff.max()), float(diff.mean())
     check(bf16_max <= BF16_MAX_ABS and bf16_mean <= BF16_MEAN_ABS,
           f"bfloat16 vs float32: max {bf16_max}, mean {bf16_mean}")
-    print(f"[slice] bfloat16 vs float32: max abs {bf16_max:.3e}, mean abs "
+    print(f"[serve] bfloat16 vs float32: max abs {bf16_max:.3e}, mean abs "
           f"{bf16_mean:.3e} (limits {BF16_MAX_ABS}, {BF16_MEAN_ABS})",
           flush=True)
 
@@ -236,23 +464,269 @@ def phase_slice(gru, card: str) -> dict:
         dt = time.perf_counter() - t0
         throughput[name] = iters * BATCH / dt
         batch_ms[name] = dt / iters * 1e3
-        print(f"[slice] {name} generate bs={BATCH}: "
+        print(f"[serve] {name} generate bs={BATCH}: "
               f"{throughput[name]:.1f} img/s ({dt / iters * 1e3:.2f} ms "
               f"per batch) on {card}", flush=True)
 
-    profile = profile_generate(engines, requests[16], batch_ms)
+    profile = {name: profile_call(
+        lambda eng=eng: eng.generate(*requests[16]), f"{name} generate(16)",
+        batch_ms[name]) for name, eng in engines.items()}
     return dict(launches=launches, chunks=chunks, device_max_abs_err=device_err,
                 bf16_max_abs=bf16_max, bf16_mean_abs=bf16_mean,
                 img_per_s=throughput, profile=profile)
 
 
+def train_batch(cfg, n: int, seed: int, device, with_eps: bool = False):
+    from vae_gan_mark_tpu_torch.train import batch_to_device
+
+    rng = np.random.default_rng(seed)
+    shape = (n, cfg.patch_h, cfg.patch_w)
+    tokens = rng.integers(1, cfg.vocab_size, (n, cfg.max_text_len))
+    tokens[:, rng.integers(10, cfg.max_text_len):] = 0        # PAD tail
+    batch = {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
+                 np.float32),
+             "text": tokens}
+    if with_eps:
+        batch["eps"] = rng.normal(0, 1, (n, 1, 1, cfg.z_ch)).astype(
+            np.float32)
+    return batch_to_device(batch, device)
+
+
+def train_weights(cfg):
+    from vae_gan_mark_tpu_torch.utils.port_jax import (
+        discriminator_state_dict_from_jax, random_discriminator_tree,
+        random_jax_tree, random_vgg_tree, state_dict_from_jax,
+        vgg_state_dict_from_jax)
+
+    return (state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg),
+            discriminator_state_dict_from_jax(*random_discriminator_tree(1)),
+            vgg_state_dict_from_jax(random_vgg_tree(2)))
+
+
+def make_trainer(cfg, weights, device):
+    from vae_gan_mark_tpu_torch.models import VGG16Features
+    from vae_gan_mark_tpu_torch.ops.precision import torch_dtype
+    from vae_gan_mark_tpu_torch.train import create_train_state
+
+    g_sd, d_sd, vgg_sd = weights
+    state = create_train_state(cfg, g_sd, d_sd, device=device)
+    vgg = VGG16Features(torch_dtype(cfg.compute_dtype))
+    vgg.load_state_dict(vgg_sd)
+    return state, vgg.to(device)
+
+
+def watched_buffers(state) -> dict:
+    return {k: v.detach().clone() for k, v in
+            {**state.generator.state_dict(),
+             **state.discriminator.state_dict()}.items()
+            if "running_" in k or "weight_u" in k}
+
+
+def run_train_path(gru, cfg, weights, name: str) -> dict:
+    """TRAIN_STEPS steps at batch 16 with the GRU counts at 0 just before
+    and read just after."""
+    from vae_gan_mark_tpu_torch.train import build_train_step
+
+    state, vgg = make_trainer(cfg, weights, "cuda")
+    step = build_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [train_batch(cfg, BATCH, 100 + i, "cuda")
+               for i in range(TRAIN_STEPS)]
+    before = watched_buffers(state)
+    torch.cuda.synchronize()
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    history = []
+    for batch in batches:
+        state, metrics = step(state, vgg, batch, gen, 1e-3)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(forward=gru.KERNEL.launches,
+                    backward=gru.BACKWARD_KERNEL.launches)
+    check(launches == dict(forward=4 * TRAIN_STEPS,
+                           backward=4 * TRAIN_STEPS),
+          f"{name} train: GRU launches {launches}, expected 4 + 4 per step "
+          f"over {TRAIN_STEPS} steps")
+    history = [{k: float(v) for k, v in m.items()} for m in history]
+    check(all(np.isfinite(v) for m in history for v in m.values()),
+          f"{name} train: non-finite losses {history}")
+    after = watched_buffers(state)
+    moved = {kind: any(not torch.equal(before[k], after[k])
+                       for k in before if kind in k)
+             for kind in ("running_mean", "running_var", "weight_u")}
+    check(all(moved.values()), f"{name} train: buffers did not move {moved}")
+    print(f"[train] {name} {TRAIN_STEPS} steps bs={BATCH}: {seconds:.2f} s "
+          f"(first step included), GRU launches {launches}, last losses "
+          + " ".join(f"{k}={v:.4f}" for k, v in history[-1].items()),
+          flush=True)
+    return dict(state=state, vgg=vgg, step=step, gen=gen,
+                result=dict(launches=launches, losses=history,
+                            seconds=seconds, buffers_moved=moved))
+
+
+def step_rate(step, state, vgg, gen, batch, iters: int) -> dict:
+    n = batch["ru"].shape[0]
+    for _ in range(2):
+        step(state, vgg, batch, gen, 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, vgg, batch, gen, 1e-3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return dict(batch=n, step_ms=dt / iters * 1e3, img_per_s=iters * n / dt)
+
+
+def l2_spread(a: dict, b: dict) -> list:
+    """Per-tensor ||a - b|| / ||b|| over the moments, sorted, largest
+    last; the zero-gradient parameters left out."""
+    return sorted(((a[k] - b[k]).norm().item()
+                   / max(b[k].norm().item(), 1e-30), k)
+                  for k in b if k not in ZERO_GRADIENT_PARAMS)
+
+
+def compare_devices(cfg, weights) -> dict:
+    """One float32 step at B=2, dropout 0, same weights, batch and eps, on
+    the card and on the CPU; the CPU step once more on one thread, whose
+    spread against the CPU's default threads is sum order alone."""
+    import dataclasses
+
+    from vae_gan_mark_tpu_torch.train import build_train_step
+
+    cfg = dataclasses.replace(cfg, char_rnn_dropout=0.0)
+    threads = torch.get_num_threads()
+    runs = {}
+    for device, n_threads in (("cuda", threads), ("cpu", threads),
+                              ("cpu_1_thread", 1)):
+        torch.set_num_threads(n_threads)
+        dev = device.split("_")[0]
+        state, vgg = make_trainer(cfg, weights, dev)
+        batch = train_batch(cfg, 2, 7, dev, with_eps=True)
+        state, metrics = build_train_step(cfg)(
+            state, vgg, batch, torch.Generator(device=dev).manual_seed(0),
+            1e-3)
+        runs[device] = (
+            {k: float(v) for k, v in metrics.items()},
+            {k: v.cpu() for k, v in watched_buffers(state).items()},
+            {n: state.opt_g.state[p]["exp_avg"].cpu()
+             for n, p in state.generator.named_parameters()})
+    torch.set_num_threads(threads)
+    (m_gpu, b_gpu, mom_gpu), (m_cpu, b_cpu, mom_cpu) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+                   for k in m_cpu)
+    # Buffers: |err| <= atol + rtol * |cpu|, read as a share of that limit.
+    buffer_err = max(((b_gpu[k] - b_cpu[k]).abs()
+                      / (STEP_BUFFER_ATOL + STEP_BUFFER_RTOL
+                         * b_cpu[k].abs())).max().item() for k in b_cpu)
+    net_max = max(v.abs().max().item() for v in mom_cpu.values())
+    zero_err = max((mom_gpu[k] - mom_cpu[k]).abs().max().item()
+                   / (STEP_MOMENT_ZERO * net_max) for k in ZERO_GRADIENT_PARAMS)
+    devices = l2_spread(mom_gpu, mom_cpu)
+    cpu_threads = l2_spread(runs["cpu_1_thread"][2], mom_cpu)
+    moment_err = max(devices[-1][0] / STEP_MOMENT_L2, zero_err)
+    result = dict(losses_cuda=m_gpu, losses_cpu=m_cpu,
+                  loss_max_rel_err=loss_err,
+                  buffer_err_over_limit=buffer_err,
+                  moment_err_over_limit=moment_err,
+                  moment_l2_median=devices[len(devices) // 2][0],
+                  worst_moments=devices[-3:],
+                  cpu_threads=threads,
+                  cpu_1_thread_l2_median=cpu_threads[len(cpu_threads) // 2][0],
+                  cpu_1_thread_worst=cpu_threads[-3:],
+                  zero_gradient_err_over_limit=zero_err,
+                  largest_moment=net_max)
+    print(f"[train] CUDA vs CPU float32 step at B=2: losses max rel err "
+          f"{loss_err:.2e} (limit {STEP_LOSS_RTOL}), BN/u at "
+          f"{buffer_err:.3f} of their limit; G's Adam moments per tensor "
+          f"L2 median {result['moment_l2_median']:.2e}, worst "
+          f"{devices[-1][0]:.2e} ({devices[-1][1]}; limit {STEP_MOMENT_L2});"
+          f" CPU 1 vs {threads} threads: median "
+          f"{result['cpu_1_thread_l2_median']:.2e}, worst "
+          f"{cpu_threads[-1][0]:.2e}; zero-gradient bias at {zero_err:.3f} "
+          f"of its limit", flush=True)
+    check(loss_err <= STEP_LOSS_RTOL and buffer_err <= 1.0
+          and moment_err <= 1.0, f"CUDA vs CPU train step: {result}")
+    return result
+
+
+def phase_train(gru, card: str) -> dict:
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.train import build_eval_step
+
+    cfgs = {name: get_config("v2", compute_dtype=name)
+            for name in ("bfloat16", "float32")}
+    t0 = time.perf_counter()
+    weights = train_weights(cfgs["float32"])
+    print(f"[train] seeded G, D and VGG weights through the bridge in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    result, runs = {}, {}
+    for name, cfg in cfgs.items():
+        runs[name] = run_train_path(gru, cfg, weights, name)
+        result[name] = runs[name]["result"]
+
+    rates = {}
+    for name in cfgs:
+        run = runs[name]
+        batches = (BATCH, 128) if name == "bfloat16" else (BATCH,)
+        rates[name] = {}
+        for n in batches:
+            batch = train_batch(cfgs[name], n, 200 + n, "cuda")
+            rates[name][n] = step_rate(run["step"], run["state"], run["vgg"],
+                                       run["gen"], batch,
+                                       10 if n == BATCH else 5)
+            r = rates[name][n]
+            print(f"[train] {name} step bs={n}: {r['img_per_s']:.1f} img/s "
+                  f"({r['step_ms']:.1f} ms per step) on {card}", flush=True)
+            del batch
+        torch.cuda.empty_cache()
+    result["rates"] = rates
+
+    result["profile"] = {}
+    for name in cfgs:
+        run = runs[name]
+        batch = train_batch(cfgs[name], BATCH, 300, "cuda")
+        result["profile"][name] = profile_call(
+            lambda run=run, batch=batch: (run["step"](
+                run["state"], run["vgg"], batch, run["gen"], 1e-3),
+                torch.cuda.synchronize()),
+            f"{name} train step bs={BATCH}",
+            rates[name][BATCH]["step_ms"])
+
+    run = runs["bfloat16"]
+    metrics, fake = build_eval_step(cfgs["bfloat16"])(
+        run["state"], run["vgg"], train_batch(cfgs["bfloat16"], BATCH, 400,
+                                              "cuda"), run["gen"], 1e-3)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(set(metrics) == {"recon", "kl", "psnr", "masked_l1",
+                           "mark_recovery", "gan_g", "perc", "loss_G",
+                           "loss_D"}
+          and all(np.isfinite(v) for v in metrics.values())
+          and tuple(fake.shape) == (BATCH, 64, 448, 3),
+          f"eval step: {metrics}")
+    print("[train] eval step bf16: " + " ".join(
+        f"{k}={v:.4f}" for k, v in metrics.items()), flush=True)
+    result["eval"] = metrics
+    del runs
+    torch.cuda.empty_cache()
+    result["cuda_vs_cpu"] = compare_devices(cfgs["float32"], weights)
+    return result
+
+
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
-    ("gru kernel", ("gru_fwd_kernel",)),
+    ("gru forward kernel", ("gru_fwd_kernel",)),
+    ("gru backward kernel", ("gru_bwd_kernel",)),
+    ("conv dgrad", ("dgrad",)),
+    ("conv wgrad", ("wgrad",)),
     ("upsample", ("upsample",)),
     ("convolution", ("conv", "implicit_gemm", "xmma", "fft", "winograd",
-                     "pointwise_mult_and_sum_complex", "dgrad",
+                     "pointwise_mult_and_sum_complex",
                      "nchwToNhwc", "nhwcToNchw", "cudnn")),
     ("matmul", ("gemm", "gemv", "splitK")),
+    ("optimizer", ("adam", "Adam", "multi_tensor")),
     ("copy / cast", ("copy", "Memcpy", "Memset")),
 )
 
@@ -264,49 +738,47 @@ def kernel_class(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def profile_generate(engines, request, batch_ms) -> dict:
-    """Device time by kernel class for one generate(16) per precision. The
+def profile_call(fn, what: str, unprofiled_ms: float) -> dict:
+    """Device time by kernel class for one call that ends synchronised. The
     idle share is 1 - busy / the wall time of that same profiled call, which
     includes the profiler's own host work; device time above the wall time
     would be a double count and fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    result = {}
-    for name, eng in engines.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.generate(*request)          # returns host arrays: synced
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # Device-side events only (kernels, copies, memsets): a CPU op's
-        # own row repeats the device time of the kernels it launched.
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        check(busy_ms <= wall_ms * 1.01,
-              f"profile of {name} generate(16): device busy {busy_ms:.2f} ms "
-              f"exceeds the call's wall time {wall_ms:.2f} ms")
-        classes = {}
-        for e in events:
-            cls = kernel_class(e.key)
-            ms, count = classes.get(cls, (0.0, 0))
-            classes[cls] = (ms + e.self_device_time_total / 1e3,
-                            count + e.count)
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-        result[name] = dict(
-            batch_ms=batch_ms[name], profiled_wall_ms=wall_ms,
-            device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
-            classes=classes,
-            top=[(e.key[:100], e.self_device_time_total / 1e3, e.count)
-                 for e in top])
-        print(f"[profile] {name} generate(16): {wall_ms:.2f} ms profiled "
-              f"({batch_ms[name]:.2f} ms unprofiled), device busy "
-              f"{busy_ms:.2f} ms, idle share "
-              f"{result[name]['idle_share']:.3f}", flush=True)
-        for cls, (ms, count) in sorted(classes.items(), key=lambda i: -i[1][0]):
-            print(f"[profile]   {ms:8.3f} ms  {count:4d} launches  {cls}",
-                  flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels, copies, memsets): a CPU op's own
+    # row repeats the device time of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    check(busy_ms <= wall_ms * 1.01,
+          f"profile of {what}: device busy {busy_ms:.2f} ms exceeds the "
+          f"call's wall time {wall_ms:.2f} ms")
+    classes = {}
+    for e in events:
+        cls = kernel_class(e.key)
+        ms, count = classes.get(cls, (0.0, 0))
+        classes[cls] = (ms + e.self_device_time_total / 1e3, count + e.count)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    result = dict(unprofiled_ms=unprofiled_ms, profiled_wall_ms=wall_ms,
+                  device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+                  idle_share_vs_unprofiled=1.0 - busy_ms / unprofiled_ms,
+                  classes=classes,
+                  top=[(e.key[:100], e.self_device_time_total / 1e3, e.count)
+                       for e in top])
+    print(f"[profile] {what}: {wall_ms:.2f} ms profiled "
+          f"({unprofiled_ms:.2f} ms unprofiled), device busy {busy_ms:.2f} ms,"
+          f" idle share {result['idle_share']:.3f} "
+          f"({result['idle_share_vs_unprofiled']:.3f} against the unprofiled "
+          f"time)", flush=True)
+    for cls, (ms, count) in sorted(classes.items(), key=lambda i: -i[1][0]):
+        print(f"[profile]   {ms:8.3f} ms  {count:5d} launches  {cls}",
+              flush=True)
     return result
 
 
@@ -316,7 +788,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from vae_gan_mark_tpu_torch.ops import gru
+    from vae_gan_mark_tpu_torch.ops import conv_probe, gru
 
     card = card_line()
     print(f"[card] {card}", flush=True)
@@ -325,34 +797,65 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    lib_path, log = gru.build()
-    print(f"[build] {os.path.relpath(lib_path, ROOT)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+    t_start = time.perf_counter()
+    build = phase_build([gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL])
+    forward_rows = phase_gru_forward(gru)
+    backward_rows = phase_gru_backward(gru)
+    conv = phase_conv(conv_probe)
+    serve = phase_serve(gru, card)
+    train = phase_train(gru, card)
 
-    kernel_rows = phase_kernel(gru)
-    slice_result = phase_slice(gru, card)
-
-    main_row = next(r for r in kernel_rows
-                    if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
-    kernels = [dict(
-        name="gru_forward", route="cuda",
-        source="vae_gan_mark_tpu_torch/csrc/gru_fwd.cu",
-        replaces="vae_gan_mark_tpu/ops/pallas/gru.py:76",
-        launches=slice_result["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in kernel_rows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
-        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=main_row["library_ms"])]
+    fwd_row = next(r for r in forward_rows
+                   if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
+    bwd_row = next(r for r in backward_rows
+                   if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
+    conv_row = conv["shapes"]["v2_full_res_64ch_f2"]
+    train_launches = train["bfloat16"]["launches"]
+    kernels = [
+        dict(name="gru_forward", route="cuda",
+             source="vae_gan_mark_tpu_torch/csrc/gru_fwd.cu",
+             replaces="vae_gan_mark_tpu/ops/pallas/gru.py:76",
+             launches=train_launches["forward"],
+             launches_by_path=dict(
+                 serve=serve["launches"],
+                 train_bfloat16=train_launches["forward"],
+                 train_float32=train["float32"]["launches"]["forward"]),
+             max_abs_err=max(r["max_abs_err"] for r in forward_rows),
+             ms=fwd_row["ms"], plain_ms=fwd_row["plain_ms"],
+             bound_ms=fwd_row["bound_ms"], bound_by=fwd_row["bound_by"],
+             library_ms=fwd_row["library_ms"]),
+        dict(name="gru_backward", route="cuda",
+             source="vae_gan_mark_tpu_torch/csrc/gru_bwd.cu",
+             replaces="vae_gan_mark_tpu/ops/pallas/gru.py:100",
+             launches=train_launches["backward"],
+             launches_by_path=dict(
+                 train_bfloat16=train_launches["backward"],
+                 train_float32=train["float32"]["launches"]["backward"]),
+             max_abs_err=max(r["max_abs_err"] for r in backward_rows),
+             ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
+             plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
+             bound_by=bwd_row["bound_by"], library_ms=bwd_row["library_ms"]),
+        dict(name="conv3x3_superp", route="cuda",
+             source="vae_gan_mark_tpu_torch/csrc/conv3x3.cu",
+             replaces="benchmarks/pallas_conv_probe.py:116",
+             launches=conv["launches"],
+             launches_by_path=dict(probe_shapes=conv["launches"]),
+             max_abs_err=max(c["max_abs_err"] for c in conv["checks"]),
+             max_rel_err=max(c["rel_err"] for c in conv["checks"]),
+             ms=conv_row["ms"], plain_ms=conv_row["plain_ms"],
+             bound_ms=conv_row["bound_ms"], bound_by=conv_row["bound_by"],
+             library_ms=conv_row["library_ms"]),
+    ]
+    seconds = time.perf_counter() - t_start
 
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, torch=torch.__version__,
-                       kernel_rows=kernel_rows, slice=slice_result,
-                       kernels=kernels), f, indent=1)
+        json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
+                       build=build, gru_forward=forward_rows,
+                       gru_backward=backward_rows, conv=conv, serve=serve,
+                       train=train, kernels=kernels), f, indent=1,
+                  default=str)
+    print(f"[done] phases took {seconds:.1f} s", flush=True)
 
     print(card_line())
     print(json.dumps({"kernels": kernels}))

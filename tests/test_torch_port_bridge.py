@@ -1,20 +1,29 @@
 """The weight bridge (``vae_gan_mark_tpu_torch/utils/port_jax.py``): its
-table of leaves matches the JAX generator's parameter trees, its keys match
-the port's ``state_dict``, and the JAX package's ``port_v2_generator``
-inverts it exactly."""
+tables of leaves match the JAX generator's, discriminator's and VGG head's
+parameter trees, its keys match the port's ``state_dict``s, and the JAX
+package's ``port_v2_generator``, ``port_discriminator`` and
+``port_vgg_head`` invert it exactly."""
 
 import numpy as np
 import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from vae_gan_mark_tpu.config import get_config as jax_get_config
-from vae_gan_mark_tpu.utils.port_torch import port_v2_generator
+from vae_gan_mark_tpu.models.discriminator import (
+    PatchDiscriminator as JaxDiscriminator)
+from vae_gan_mark_tpu.models.vgg import VGG16Features as JaxVGG
+from vae_gan_mark_tpu.utils.port_torch import (
+    port_discriminator, port_v2_generator, port_vgg_head)
 from vae_gan_mark_tpu_torch.config import get_config
-from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+from vae_gan_mark_tpu_torch.models import (
+    PatchDiscriminator, VAEGANGenerator, VGG16Features)
 from vae_gan_mark_tpu_torch.utils.port_jax import (
-    random_jax_tree, state_dict_from_jax)
+    discriminator_state_dict_from_jax, random_discriminator_tree,
+    random_jax_tree, random_vgg_tree, state_dict_from_jax,
+    vgg_state_dict_from_jax)
 
 from torch_port_common import TINY, jax_tree_shapes_of
 
@@ -83,3 +92,55 @@ def test_bridge_rejects_wrong_shapes_and_variants():
         state_dict_from_jax(params, stats, cfg)
     with pytest.raises(NotImplementedError):
         random_jax_tree(get_config("oldv"), seed=0)
+
+
+def _disc_trees(seed):
+    params, spectral = random_discriminator_tree(seed)
+    return {"params": params, "spectral": spectral}
+
+
+def _vgg_trees(seed):
+    return {"params": random_vgg_tree(seed)}
+
+
+NETWORKS = {
+    # name: (seeded trees, JAX module, input shape, bridge, port module,
+    #        the JAX package's inverse)
+    "discriminator": (
+        _disc_trees, JaxDiscriminator(), (1, 32, 64, 3),
+        lambda t: discriminator_state_dict_from_jax(t["params"],
+                                                    t["spectral"]),
+        PatchDiscriminator,
+        lambda sd: dict(zip(("params", "spectral"), port_discriminator(sd)))),
+    "vgg": (
+        _vgg_trees, JaxVGG(), (1, 32, 32, 3),
+        lambda t: vgg_state_dict_from_jax(t["params"]), VGG16Features,
+        lambda sd: {"params": port_vgg_head(sd)}),
+}
+
+
+@pytest.mark.parametrize("network", sorted(NETWORKS))
+def test_other_networks_match_jax_and_invert(network):
+    """Tree shapes equal the JAX module's init, the state dict loads into
+    the port's module with every key, and the JAX package's inverse gives
+    the trees back bit for bit."""
+    make, jax_module, in_shape, bridge, port_cls, inverse = NETWORKS[network]
+    trees = make(seed=3)
+    variables = jax.eval_shape(
+        lambda x: jax_module.init(jax.random.PRNGKey(0), x),
+        jax.ShapeDtypeStruct(in_shape, jnp.float32))
+    assert jax.tree.map(np.shape, trees) == jax.tree.map(
+        lambda v: tuple(v.shape), dict(variables))
+    sd = bridge(trees)
+    port = port_cls()
+    assert sd.keys() == port.state_dict().keys()
+    port.load_state_dict(sd)
+    back = inverse(sd)
+    flat = jax.tree_util.tree_flatten_with_path
+    a, b = flat(trees)[0], flat(jax.tree.map(np.asarray, back))[0]
+    assert [p for p, _ in a] == [p for p, _ in b]
+    for (path, x), (_, y) in zip(a, b):
+        np.testing.assert_array_equal(x, y, err_msg=str(path))
+    if network == "discriminator":
+        for u in trees["spectral"].values():
+            assert np.linalg.norm(u["u"]) == pytest.approx(1.0, rel=1e-6)

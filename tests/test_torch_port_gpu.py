@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from vae_gan_mark_tpu_torch.config import get_config
-from vae_gan_mark_tpu_torch.ops import gru
+from vae_gan_mark_tpu_torch.models import VGG16Features
+from vae_gan_mark_tpu_torch.ops import conv_probe, gru
 from vae_gan_mark_tpu_torch.serve import InferenceEngine
+from vae_gan_mark_tpu_torch.train import (
+    batch_to_device, build_train_step, create_train_state)
 from vae_gan_mark_tpu_torch.utils.port_jax import (
-    random_jax_tree, state_dict_from_jax)
+    discriminator_state_dict_from_jax, random_discriminator_tree,
+    random_jax_tree, random_vgg_tree, state_dict_from_jax,
+    vgg_state_dict_from_jax)
 
 pytestmark = pytest.mark.gpu
 
@@ -78,3 +83,100 @@ def test_engine_on_card_matches_cpu(card):
     ref = InferenceEngine(cfg, sd, batch_size=2, device="cpu").generate(
         ru, mask, texts)
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("hidden", [16, 256])
+@pytest.mark.parametrize("batch", [1, 16, 128])
+def test_backward_kernel_matches_plain(card, hidden, batch):
+    """atol 1e-4, rtol 1e-4: dW_hh and db_hh sum over L*B rows (up to 7680)
+    in another order than the plain loop; dx_proj agrees to 1e-6."""
+    gen = torch.Generator(device=card).manual_seed(hidden * batch)
+    x_proj = torch.randn(60, batch, 3 * hidden, device=card, generator=gen)
+    w_hh = (torch.rand(3 * hidden, hidden, device=card, generator=gen)
+            - 0.5) / hidden ** 0.5
+    b_hh = torch.rand(3 * hidden, device=card, generator=gen) - 0.5
+    for reverse in (False, True):
+        outs = gru.gru_recurrence(x_proj, w_hh, b_hh, reverse)
+        grad = torch.randn(outs.shape, device=card, generator=gen)
+        before = gru.BACKWARD_KERNEL.launches
+        got = gru.gru_recurrence_backward(x_proj, w_hh, b_hh, outs, grad,
+                                          reverse)
+        torch.cuda.synchronize()
+        assert gru.BACKWARD_KERNEL.launches == before + 1
+        ref = gru.gru_backward_plain(x_proj, w_hh, b_hh, outs, grad, reverse)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,h,w,c", [(2, 16, 32, 64), (2, 16, 32, 32),
+                                     (2, 64, 448, 64), (2, 64, 448, 32)])
+def test_conv3x3_kernel_matches_plain(card, n, h, w, c):
+    """The probe's rule, max |err| / max |ref| < 5e-2; bf16 outputs of the
+    same float32 sums differ by one bf16 step at most (read 3e-3)."""
+    gen = torch.Generator(device=card).manual_seed(c)
+    x = torch.randn(n, h, w, c, device=card, generator=gen).bfloat16()
+    k = torch.randn(3, 3, c, c, device=card, generator=gen) / (3 * c ** 0.5)
+    before = conv_probe.KERNEL.launches
+    y = conv_probe.conv3x3_superp(x, k, 2)
+    torch.cuda.synchronize()
+    assert conv_probe.KERNEL.launches == before + 1
+    ref = conv_probe.conv3x3_plain(x, k)
+    err = ((y.float() - ref.float()).abs().max()
+           / ref.float().abs().max()).item()
+    assert err < 5e-2
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One float32 step (TF32 off) at the tiny geometry, B=2, dropout 0,
+    the same weights, batch and eps on both devices: metrics at rtol 1e-4,
+    BN running statistics and spectral u at atol 1e-5, Adam first moments
+    (0.5 times the clipped gradient) per tensor within 1e-3 of the tensor's
+    largest value, at least 1e-5 of the network's (cuDNN's and the CPU's sum
+    orders differ; gradients that are zero in exact arithmetic hold rounding
+    noise). The step launches each GRU kernel 4 times."""
+    cfg = get_config("v2", **{**TINY, "char_rnn_dropout": 0.0})
+    g_sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    d_sd = discriminator_state_dict_from_jax(*random_discriminator_tree(1))
+    vgg_sd = vgg_state_dict_from_jax(random_vgg_tree(2))
+    rng = np.random.default_rng(3)
+    shape = (2, cfg.patch_h, cfg.patch_w)
+    batch = {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
+                 np.float32),
+             "text": rng.integers(0, cfg.vocab_size, (2, cfg.max_text_len)),
+             "eps": rng.normal(0, 1, (2, 1, 1, cfg.z_ch)).astype(np.float32)}
+    step = build_train_step(cfg)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        state = create_train_state(cfg, g_sd, d_sd, device=device)
+        vgg = VGG16Features().to(device)
+        vgg.load_state_dict(vgg_sd)
+        before = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        state, metrics = step(state, vgg, batch_to_device(batch, device),
+                              torch.Generator(device=device).manual_seed(0),
+                              1e-3)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (gru.KERNEL.launches - before[0],
+                    gru.BACKWARD_KERNEL.launches - before[1]) == (4, 4)
+        runs[device] = (
+            {k: float(v) for k, v in metrics.items()},
+            {k: v.cpu() for k, v in
+             {**state.generator.state_dict(),
+              **state.discriminator.state_dict()}.items()
+             if "running_" in k or "weight_u" in k},
+            {n: state.opt_g.state[p]["exp_avg"].cpu()
+             for n, p in state.generator.named_parameters()})
+    (m_gpu, buf_gpu, mom_gpu), (m_cpu, buf_cpu, mom_cpu) = (
+        runs["cuda"], runs["cpu"])
+    for key in m_cpu:
+        assert m_gpu[key] == pytest.approx(m_cpu[key], rel=1e-4, abs=1e-6)
+    for key in buf_cpu:
+        torch.testing.assert_close(buf_gpu[key], buf_cpu[key], atol=1e-5,
+                                   rtol=1e-4)
+    floor = 1e-5 * max(float(v.abs().max()) for v in mom_cpu.values())
+    for key in mom_cpu:
+        scale = float(mom_cpu[key].abs().max())
+        torch.testing.assert_close(mom_gpu[key], mom_cpu[key], rtol=0,
+                                   atol=max(1e-3 * scale, floor))

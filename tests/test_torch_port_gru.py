@@ -1,9 +1,13 @@
 """The port's GRU against the JAX package's: the recurrence alone against
 the Pallas kernel (interpret mode), single-direction layers against JAX
-``GRULayer`` on both its Pallas and scan paths, and the stacked BiGRU.
+``GRULayer`` on both its Pallas and scan paths, and the stacked BiGRU; then
+the gradient, the recurrence's plain backward against ``jax.vjp`` of the
+Pallas kernel's ``custom_vjp`` and whole layers' gradients against
+``jax.vjp`` of both JAX paths.
 
-Tolerance rtol 1e-5, atol 1e-6 (the Pallas kernel's own test): both sides
-are float32 and differ only in the products' sum order.
+Tolerance rtol 1e-5, atol 1e-6 for outputs, rtol 1e-4, atol 1e-5 for
+gradients (the Pallas kernel's own tests, tests/test_pallas_gru.py): both
+sides are float32 and differ only in the products' sum order.
 
 Here, without a card, the wrapper runs the plain version for CPU tensors and
 refuses every other device; the kernel itself is held against the plain
@@ -14,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vae_gan_mark_tpu.ops.pallas.gru import pallas_gru_layer
@@ -23,6 +28,7 @@ from vae_gan_mark_tpu_torch.ops import gru
 from vae_gan_mark_tpu_torch.ops.rnn import BiGRU, GRULayer
 
 RTOL, ATOL = 1e-5, 1e-6
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 LENGTH = 60
 
 
@@ -99,6 +105,87 @@ def test_bigru_matches_jax(hidden):
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("hidden", [16, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_backward_matches_pallas_vjp(hidden, reverse):
+    """dx_proj, dW_hh, db_hh of the plain backward against ``jax.vjp`` of
+    ``pallas_gru_layer`` (interpret mode), whose backward is ``_bwd``."""
+    rng = np.random.default_rng(30 + hidden)
+    batch = 3
+    x_proj = rng.normal(0, 1, (LENGTH, batch, 3 * hidden)).astype(np.float32)
+    p = gru_params(rng, 1, hidden)
+    cot = rng.normal(0, 1, (LENGTH, batch, hidden)).astype(np.float32)
+
+    def layer(xp, w, b):
+        if reverse:
+            return jnp.flip(pallas_gru_layer(jnp.flip(xp, 0), w, b, True), 0)
+        return pallas_gru_layer(xp, w, b, True)
+
+    outs, vjp = jax.vjp(layer, jnp.asarray(x_proj), jnp.asarray(p["w_hh"]),
+                        jnp.asarray(p["b_hh"]))
+    ref_dx, ref_dw, ref_db = vjp(jnp.asarray(cot))
+    dx, dw, db = gru.gru_recurrence_backward(
+        torch.from_numpy(x_proj), torch.from_numpy(p["w_hh"].T.copy()),
+        torch.from_numpy(p["b_hh"]), torch.from_numpy(np.array(outs)),
+        torch.from_numpy(cot), reverse)
+    tol = dict(rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx), **tol)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(ref_dw).T, **tol)
+    np.testing.assert_allclose(db.numpy(), np.asarray(ref_db), **tol)
+
+
+@pytest.mark.parametrize("hidden", [16, 256])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["pallas_interpret", "scan"])
+def test_layer_gradients_match_jax(hidden, reverse, use_pallas):
+    """Every gradient of a single-direction layer (input, W_ih, b_ih, W_hh,
+    b_hh) through the autograd function, against ``jax.vjp`` of JAX
+    ``GRULayer`` on its Pallas (custom_vjp) and scan (autodiff) paths."""
+    rng = np.random.default_rng(40 + hidden)
+    batch, in_dim = 2, 24
+    x = rng.normal(0, 1, (batch, LENGTH, in_dim)).astype(np.float32)
+    p = gru_params(rng, in_dim, hidden)
+    cot = rng.normal(0, 1, (batch, LENGTH, hidden)).astype(np.float32)
+    jax_layer = JaxGRULayer(hidden, reverse=reverse, use_pallas=use_pallas,
+                            pallas_interpret=use_pallas)
+    _, vjp = jax.vjp(lambda params, x_: jax_layer.apply({"params": params},
+                                                       x_), p, x)
+    ref_p, ref_x = vjp(jnp.asarray(cot))
+    layer = GRULayer(in_dim, hidden, reverse=reverse)
+    load_direction(layer, "l0", p)
+    xt = torch.from_numpy(x).requires_grad_()
+    layer(xt).backward(torch.from_numpy(cot))
+    tol = dict(rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), **tol)
+    for name, jname, transpose in (("weight_ih_l0", "w_ih", True),
+                                   ("bias_ih_l0", "b_ih", False),
+                                   ("weight_hh_l0", "w_hh", True),
+                                   ("bias_hh_l0", "b_hh", False)):
+        ref = np.asarray(ref_p[jname])
+        np.testing.assert_allclose(getattr(layer, name).grad.numpy(),
+                                   ref.T if transpose else ref,
+                                   err_msg=name, **tol)
+
+
+def test_bigru_dropout_draws_from_the_generator():
+    """Train-mode dropout between layers comes from the given generator:
+    the same seed gives the same output, another seed another one, and no
+    generator is an error. Eval mode ignores it."""
+    port = BiGRU(8, 16, num_layers=2, dropout=0.5).train()
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, (2, 12, 8)).astype(np.float32))
+    with torch.no_grad():
+        a = port(x, torch.Generator().manual_seed(1))
+        b = port(x, torch.Generator().manual_seed(1))
+        c = port(x, torch.Generator().manual_seed(2))
+        assert torch.equal(a, b) and not torch.equal(a, c)
+        with pytest.raises(ValueError, match="torch.Generator"):
+            port(x)
+        port.eval()
+        assert torch.equal(port(x), port(x, torch.Generator().manual_seed(3)))
+
+
 def test_wrapper_refuses_devices_without_a_kernel():
     x = torch.zeros(4, 2, 48, device="meta")
     w = torch.zeros(48, 16, device="meta")
@@ -146,6 +233,48 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         gru.KERNEL(torch.zeros(4, 2, 48), torch.zeros(48, 16),
                    torch.zeros(48), False)
+
+
+def test_cuda_backward_reaches_the_kernel(monkeypatch):
+    """The backward of a CUDA request goes to the backward kernel (after
+    the gate pre-activations' product), never to the plain version; the
+    real kernel cannot be built or launched here and raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain(*args):
+        raise AssertionError("the plain backward ran for a CUDA request")
+
+    calls = []
+
+    def recording_kernel(x_proj, hp_outs, outs, grad, w_hh, b_hh, reverse):
+        calls.append((tuple(hp_outs.shape), tuple(outs.shape),
+                      hp_outs.device.type, reverse))
+        raise RuntimeError("recording kernel")
+
+    real_kernel = gru.BACKWARD_KERNEL
+    monkeypatch.setattr(gru, "gru_backward_plain", plain)
+    with FakeTensorMode():
+        x = torch.empty(4, 2, 48, device="cuda")
+        w = torch.empty(48, 16, device="cuda")
+        b = torch.empty(48, device="cuda")
+        outs = torch.empty(4, 2, 16, device="cuda")
+        g = torch.empty(4, 2, 16, device="cuda")
+        monkeypatch.setattr(gru, "BACKWARD_KERNEL", recording_kernel)
+        for reverse in (False, True):
+            with pytest.raises(RuntimeError, match="recording kernel"):
+                gru.gru_recurrence_backward(x, w, b, outs, g, reverse)
+        assert calls == [((4, 2, 48), (4, 2, 16), "cuda", False),
+                         ((4, 2, 48), (4, 2, 16), "cuda", True)]
+        if not torch.cuda.is_available():
+            monkeypatch.setattr(gru, "BACKWARD_KERNEL", real_kernel)
+            launches = real_kernel.launches
+            with pytest.raises(RuntimeError):
+                gru.gru_recurrence_backward(x, w, b, outs, g)
+            assert real_kernel.launches == launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        z = torch.zeros(4, 2, 48)
+        gru.BACKWARD_KERNEL(z, z, torch.zeros(4, 2, 16), torch.zeros(4, 2, 16),
+                            torch.zeros(48, 16), torch.zeros(48), False)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])

@@ -46,8 +46,9 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "vae_gan_mark_tpu_torch.serve.engine" in result["imported"]
-    assert "vae_gan_mark_tpu_torch.ops.gru" in result["imported"]
+    for module in ("serve.engine", "ops.gru", "train.step",
+                   "models.discriminator", "ops.conv_probe"):
+        assert f"vae_gan_mark_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["loaded"] if forbidden(m)]
     assert not bad, bad
 

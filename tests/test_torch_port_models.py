@@ -7,18 +7,33 @@ CPU, with the same seeded weights (``utils/port_jax.py``).
 * The whole v2 generator with injected ``eps`` at full width (448x64, B=2),
   and the tiny v2 and unet generators: rtol 1e-3, atol 2e-4, the tolerance
   of tests/test_torch_parity.py (some 20 convolutions deep).
+* The discriminator (logits and spectral ``u``), the VGG16 head and the
+  perceptual loss with its gradient, at the tiny geometry: rtol 1e-4,
+  atol 1e-5 (float32 on both sides, five to seven convolutions deep).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from vae_gan_mark_tpu.losses import perceptual_loss as jax_perceptual_loss
 from vae_gan_mark_tpu.models.decoders import UNetStyleDecoder as JaxDecoder
+from vae_gan_mark_tpu.models.discriminator import (
+    PatchDiscriminator as JaxDiscriminator)
+from vae_gan_mark_tpu.models.vgg import vgg_features as jax_vgg_features
 from vae_gan_mark_tpu.models.encoders import UNetEncoder as JaxEncoder
 from vae_gan_mark_tpu.models.text_encoders import (
     CharTextEncoder as JaxTextEncoder)
 from vae_gan_mark_tpu_torch.config import get_config
-from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+from vae_gan_mark_tpu_torch.losses import perceptual_loss
+from vae_gan_mark_tpu_torch.models import (
+    PatchDiscriminator, VAEGANGenerator, VGG16Features)
+from vae_gan_mark_tpu_torch.utils.port_jax import (
+    discriminator_state_dict_from_jax, random_discriminator_tree,
+    random_vgg_tree, vgg_state_dict_from_jax)
 from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
 
 from torch_port_common import TINY, Pair, nchw, nhwc
@@ -143,6 +158,62 @@ def test_generator_draws_noise_from_generator(tiny):
         b = tiny.port(*args, generator=torch.Generator().manual_seed(1))[0]
         c = tiny.port(*args, generator=torch.Generator().manual_seed(2))[0]
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+def images(seed, batch=2, h=32, w=64):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0, 1, (batch, h, w, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("update_sn", [True, False])
+def test_discriminator_matches(update_sn):
+    params, spectral = random_discriminator_tree(seed=4)
+    x = images(7)
+    ref, updated = JaxDiscriminator(update_sn=update_sn).apply(
+        {"params": params, "spectral": spectral}, x, mutable=["spectral"])
+    disc = PatchDiscriminator()
+    disc.load_state_dict(discriminator_state_dict_from_jax(params, spectral))
+    with torch.no_grad():
+        got = disc(torch.from_numpy(x), update_sn=update_sn)
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 1, 3)
+    np.testing.assert_allclose(nhwc(got), ref, MOD_RTOL, MOD_ATOL)
+    for i, idx in enumerate((0, 2, 5, 8)):
+        u = disc.body[idx].weight_u.numpy()
+        ref_u = np.asarray(updated["spectral"][f"SpectralConv_{i}"]["u"])
+        np.testing.assert_allclose(u, ref_u, MOD_RTOL, MOD_ATOL)
+        if not update_sn:
+            np.testing.assert_array_equal(
+                u, spectral[f"SpectralConv_{i}"]["u"])
+
+
+def test_conditional_discriminator_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PatchDiscriminator(cond_vocab=91)
+
+
+def test_vgg_and_perceptual_loss_match():
+    """relu3_3 features, the perceptual L1 and its gradient through the
+    generated image; VGG's own parameters take none."""
+    params = random_vgg_tree(seed=5)
+    fake, real = images(8), images(9)
+    vgg = VGG16Features()
+    vgg.load_state_dict(vgg_state_dict_from_jax(params))
+    assert not any(p.requires_grad for p in vgg.parameters())
+    with torch.no_grad():
+        feats = vgg(torch.from_numpy(fake))
+    np.testing.assert_allclose(nhwc(feats), jax_vgg_features(params, fake),
+                               MOD_RTOL, MOD_ATOL)
+    fake_t = torch.from_numpy(fake).requires_grad_()
+    loss = perceptual_loss(vgg, fake_t, torch.from_numpy(real))
+    loss.backward()
+    ref, ref_grad = jax.value_and_grad(
+        lambda f: jax_perceptual_loss(params, f, jnp.asarray(real)))(
+        jnp.asarray(fake))
+    np.testing.assert_allclose(float(loss.detach()), float(ref), MOD_RTOL,
+                               MOD_ATOL)
+    np.testing.assert_allclose(fake_t.grad.numpy(), np.asarray(ref_grad),
+                               MOD_RTOL, MOD_ATOL)
+    assert all(p.grad is None for p in vgg.parameters())
 
 
 @pytest.mark.parametrize("variant", ["vanilla", "lr_sh", "oldv"])

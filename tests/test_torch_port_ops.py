@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vae_gan_mark_tpu import config as jax_config
@@ -21,7 +22,11 @@ from vae_gan_mark_tpu.ops.convblocks import (
     ConvBNRelu as JaxConvBNRelu, DoubleConvBlock as JaxDoubleConv,
     TConv as JaxTConv, TConvBNRelu as JaxTConvBNRelu,
     max_pool_2x2 as jax_max_pool)
+from vae_gan_mark_tpu import losses as jax_losses
 from vae_gan_mark_tpu.ops.norms import BatchNorm as JaxBatchNorm
+from vae_gan_mark_tpu.ops.norms import InstanceNorm as JaxInstanceNorm
+from vae_gan_mark_tpu.ops.norms import (
+    spectral_normalize as jax_spectral_normalize)
 from vae_gan_mark_tpu.ops.pool import adaptive_avg_pool1d as jax_pool
 from vae_gan_mark_tpu.ops.resize import interpolate_bilinear as jax_resize
 from vae_gan_mark_tpu_torch import config as port_config
@@ -30,10 +35,12 @@ from vae_gan_mark_tpu_torch.ops import warp
 from vae_gan_mark_tpu_torch.ops.convblocks import (
     ConvBNRelu, DoubleConvBlock, TConv, TConvBNRelu, max_pool_2x2)
 from vae_gan_mark_tpu_torch.ops.film import SpatialFiLM, spatial_broadcast
-from vae_gan_mark_tpu_torch.ops.norms import BatchNorm
+from vae_gan_mark_tpu_torch import losses
+from vae_gan_mark_tpu_torch.ops.norms import (
+    BatchNorm, InstanceNorm, spectral_normalize)
 from vae_gan_mark_tpu_torch.ops.pool import adaptive_avg_pool1d
 from vae_gan_mark_tpu_torch.ops.resize import interpolate_bilinear
-from vae_gan_mark_tpu_torch.ops.sampling import reparameterize
+from vae_gan_mark_tpu_torch.ops.sampling import kl_divergence, reparameterize
 from vae_gan_mark_tpu_torch.utils.port_jax import to_port_layout
 
 from torch_port_common import nchw, nhwc
@@ -111,8 +118,80 @@ def test_batchnorm_eval_matches():
 
 
 def test_batchnorm_train_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BatchNorm(3).train()(torch.zeros(2, 3, 4, 4))
+    """BatchNorm train mode against the JAX package's: batch statistics
+    with the biased variance, the running update with the unbiased one, and
+    the gradient through the batch statistics."""
+    rng = np.random.default_rng(14)
+    x = normal(rng, 3, 5, 7, 6) * 2.0 + 0.5
+    params, stats = bn_tree(rng, 6)
+    ref, updated = JaxBatchNorm(use_running_average=False).apply(
+        {"params": params, "batch_stats": stats}, x, mutable=["batch_stats"])
+    bn = BatchNorm(6).train()
+    load_bn(bn, params, stats)
+    xt = nchw(x).requires_grad_()
+    got = bn(xt)
+    close(nhwc(got), ref)
+    close(bn.running_mean.numpy(), updated["batch_stats"]["mean"])
+    close(bn.running_var.numpy(), updated["batch_stats"]["var"])
+    got.square().sum().backward()
+    ref_grad = jax.grad(lambda x_: jnp.sum(jnp.square(JaxBatchNorm().apply(
+        {"params": params, "batch_stats": stats}, x_,
+        mutable=["batch_stats"])[0])))(jnp.asarray(x))
+    close(nhwc(xt.grad), ref_grad, 1e-4, 1e-4)
+
+
+def test_instance_norm_matches():
+    rng = np.random.default_rng(15)
+    x = normal(rng, 2, 6, 10, 5) * 3.0 - 1.0
+    params = {"scale": rng.uniform(0.5, 1.5, 5).astype(np.float32),
+              "bias": normal(rng, 5, std=0.1)}
+    ref = JaxInstanceNorm().apply({"params": params}, x)
+    norm = InstanceNorm(5)
+    norm.load_state_dict({"weight": torch.from_numpy(params["scale"]),
+                          "bias": torch.from_numpy(params["bias"])})
+    with torch.no_grad():
+        close(nhwc(norm(nchw(x))), ref)
+
+
+@pytest.mark.parametrize("update", [True, False])
+def test_spectral_normalize_matches(update):
+    """One power iteration (or none) and W / sigma; the gradient flows
+    through sigma only, the iteration itself takes none."""
+    rng = np.random.default_rng(16)
+    kernel = normal(rng, 4, 4, 6, 9, std=0.3)
+    u = normal(rng, 9)
+    u /= np.linalg.norm(u)
+    w_ref, u_ref = jax_spectral_normalize(jnp.asarray(kernel),
+                                          jnp.asarray(u), update)
+    weight = tensor("conv", kernel).requires_grad_()
+    w_sn, u_new = spectral_normalize(weight, torch.from_numpy(u), update)
+    close(w_sn.detach().numpy(), to_port_layout("conv", np.asarray(w_ref)))
+    close(u_new.numpy(), u_ref, 1e-5, 1e-6)
+    if not update:
+        np.testing.assert_array_equal(u_new.numpy(), u)
+    cot = normal(rng, 4, 4, 6, 9)
+    (w_sn * tensor("conv", cot)).sum().backward()
+    ref_grad = jax.grad(lambda k: jnp.sum(jax_spectral_normalize(
+        k, jnp.asarray(u), update)[0] * cot))(jnp.asarray(kernel))
+    close(weight.grad.numpy(), to_port_layout("conv", np.asarray(ref_grad)))
+
+
+# ---------------------------------------------------------------- losses
+@pytest.mark.parametrize("name", ["l1_loss", "hinge_d_real", "hinge_d_fake",
+                                  "hinge_g", "kl_divergence"])
+def test_losses_match(name):
+    rng = np.random.default_rng(17)
+    a, b = normal(rng, 3, 4, 5, 2), normal(rng, 3, 4, 5, 2)
+    if name == "l1_loss":
+        args = (a, b)
+    elif name == "kl_divergence":
+        args = (a, 0.5 * b)
+    else:
+        args = (a,)
+    ours = kl_divergence if name == "kl_divergence" else getattr(losses, name)
+    got = ours(*(torch.from_numpy(v) for v in args))
+    assert got.dtype == torch.float32 and got.dim() == 0
+    close(got.numpy(), getattr(jax_losses, name)(*args), 1e-6, 1e-7)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -283,6 +362,29 @@ def test_spatial_film_fast_equals_naive():
         fast = port_film(sd, 8, 6, True)(nchw(x), nchw(tmap))
         naive = port_film(sd, 8, 6, False)(nchw(x), nchw(tmap))
     close(fast.numpy(), naive.numpy())
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "naive"])
+def test_spatial_film_train_statistics_match(fast):
+    """Train-mode BN inside the predictor: the row-factored path weights
+    its three row types (1, H-2, 1), so its output and running statistics
+    equal the JAX package's on the same path and the full-map (naive) ones."""
+    h, w = 8, 56
+    x, tmap, variables, sd = film_setup(18, h, w)
+    outs = {}
+    for jax_fast in (True, False):
+        outs[jax_fast] = jax_film.SpatialFiLM(
+            num_features_main=12, train=True, fast=jax_fast).apply(
+            variables, x, tmap, mutable=["batch_stats"])
+    film = port_film(sd, 12, 10, fast).train()
+    with torch.no_grad():
+        got = nhwc(film(nchw(x), nchw(tmap)))
+    bn = film.param_predictor[1]
+    for jax_fast in (True, False):
+        ref, updated = outs[jax_fast]
+        close(got, ref)
+        close(bn.running_mean.numpy(), updated["batch_stats"]["bn_mean"])
+        close(bn.running_var.numpy(), updated["batch_stats"]["bn_var"])
 
 
 def test_spatial_broadcast_matches():

@@ -8,6 +8,8 @@ Submodule names follow the reference's state-dict keys (``embedding``,
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -26,16 +28,19 @@ class _CharEmbedGRU(nn.Module):
         self.embedding = nn.Embedding(vocab_size, emb_dim)
         self.rnn = BiGRU(emb_dim, rnn_hidden, rnn_layers, dropout, dtype)
 
-    def embed_and_encode(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_and_encode(self, tokens: torch.Tensor,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         # Multiplying by the PAD mask pins row 0 to zero, as
         # nn.Embedding(padding_idx=0) does in the reference.
         emb = self.embedding(tokens) * (tokens != 0)[..., None].float()
-        return self.rnn(emb)
+        return self.rnn(emb, generator)
 
 
 class CharTextEncoder(_CharEmbedGRU):
     """tokens (B, L) -> spatial text features (B, 2H, 1, out_width), the
-    NCHW form of the JAX package's (B, 1, out_width, 2H)."""
+    NCHW form of the JAX package's (B, 1, out_width, 2H). ``generator``
+    draws the BiGRU's train-mode dropout."""
 
     def __init__(self, vocab_size: int, out_width: int, emb_dim: int = 128,
                  rnn_hidden: int = 256, rnn_layers: int = 2,
@@ -44,7 +49,8 @@ class CharTextEncoder(_CharEmbedGRU):
                          dropout, dtype)
         self.out_width = out_width
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        y = self.embed_and_encode(tokens)                  # (B, L, 2H)
+    def forward(self, tokens: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.embed_and_encode(tokens, generator)       # (B, L, 2H)
         y = adaptive_avg_pool1d(y, self.out_width)         # (B, W_t, 2H)
         return y.transpose(1, 2)[:, :, None, :]            # (B, 2H, 1, W_t)

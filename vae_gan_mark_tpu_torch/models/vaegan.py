@@ -8,7 +8,9 @@ keeps the JAX package's layout at its boundary: ``image`` (B, H, W, 3) and
 ``recon`` (B, H, W, 3) and ``mu``/``logvar`` (B, 1, 1, z_ch), all float32.
 Inside, tensors are NCHW. The reparameterisation samples in eval too, as
 the reference does: ``eps`` (same shape as ``mu``) injects the noise,
-otherwise it is drawn from ``generator``.
+otherwise it is drawn from ``generator``. In train mode (``model.train()``)
+BatchNorm uses batch statistics and advances its running statistics, and
+the BiGRU's inter-layer dropout draws from ``generator`` as well.
 
 Submodule names follow the reference's state-dict keys
 (``style_vae_encoder_module``, ``char_text_encoder_module``,
@@ -76,7 +78,7 @@ class VAEGANGenerator(nn.Module):
             if eps is not None:
                 eps = eps.permute(0, 3, 1, 2)              # NHWC -> NCHW
             z = reparameterize(mu32, logvar32, eps, generator).to(self.dtype)
-            text_map = self.char_text_encoder_module(tokens)
+            text_map = self.char_text_encoder_module(tokens, generator)
             recon = self.image_vae_decoder_module(z, text_map, skips)
             return (recon.permute(0, 2, 3, 1).float(),
                     mu32.permute(0, 2, 3, 1), logvar32.permute(0, 2, 3, 1))

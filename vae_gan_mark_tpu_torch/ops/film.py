@@ -9,8 +9,11 @@ constant along y, so a 3x3 conv over it takes only three distinct values per
 column -- the top row (zero-padded above: kernel rows 1+2), the interior rows
 (rows 0+1+2) and the bottom row (rows 0+1). Each is a 3-tap conv along x.
 The predictor then runs on a (B, C_t, 3, W) row-type tensor, and gamma and
-beta are applied row by row without full-resolution maps. In eval mode BN
-uses running statistics, so it needs no row weights.
+beta are applied row by row without full-resolution maps. In train mode BN
+weights the three row types by their multiplicities (1, H-2, 1), with
+n = B*W*H, so that its statistics and running update equal the full map's
+(the JAX package's ``_batch_norm(weights=...)``); in eval mode it uses the
+running statistics.
 
 Taller text maps (the oldv variant's height 4) take the naive path, which
 computes the same function; the JAX package's strip-factored shortcut for
@@ -56,7 +59,7 @@ class SpatialFiLM(nn.Module):
         h, w = x.shape[2], x.shape[3]
         c = self.num_features_main
         if self.fast and text_map.shape[2] == 1 and h >= 3:
-            gb = self._fast_predict(text_map, w)            # (B, 2C, 3, W)
+            gb = self._fast_predict(text_map, h, w)         # (B, 2C, 3, W)
             gamma, beta = gb[:, :c], gb[:, c:]
             top = gamma[:, :, 0:1] * x[:, :, 0:1] + beta[:, :, 0:1]
             mid = gamma[:, :, 1:2] * x[:, :, 1:h - 1] + beta[:, :, 1:2]
@@ -66,7 +69,8 @@ class SpatialFiLM(nn.Module):
         gb = self.param_predictor(t)
         return gb[:, :c] * x + gb[:, c:]
 
-    def _fast_predict(self, text_map: torch.Tensor, w: int) -> torch.Tensor:
+    def _fast_predict(self, text_map: torch.Tensor, h: int,
+                      w: int) -> torch.Tensor:
         """Row-factored predictor for y-constant upsampled text maps."""
         conv3, bn, relu, conv1 = self.param_predictor
         t_x = interpolate_bilinear(text_map, 1, w).to(self.dtype)
@@ -76,5 +80,7 @@ class SpatialFiLM(nn.Module):
                        k[:, :, 0] + k[:, :, 1])             # bottom
         rows = [F.conv2d(t_x, kr[:, :, None, :].to(self.dtype),
                          padding=(0, 1)) for kr in row_kernels]
-        t_rows = relu(bn(torch.cat(rows, dim=2)))           # (B, Ct, 3, W)
+        t_rows = bn(torch.cat(rows, dim=2),                 # (B, Ct, 3, W)
+                    row_weights=(1.0, float(h - 2), 1.0))
+        t_rows = relu(t_rows)
         return conv1(t_rows)

@@ -1,5 +1,5 @@
-"""GRU recurrence: the hand-written Hopper kernel, its build, and its plain
-PyTorch version.
+"""GRU recurrence: the hand-written Hopper kernels for its forward and its
+gradient, and their plain PyTorch versions.
 
 ``gru_recurrence(x_proj, w_hh, b_hh, reverse)`` maps time-major input
 projections (L, B, 3H) = x @ W_ih^T + b_ih to every hidden state (L, B, H),
@@ -8,85 +8,44 @@ from h0 = 0, with torch's gate order (r, z, n) and ``b_hn`` inside
 (``ops/pallas/gru.py:pallas_gru_layer``); ``reverse`` runs right to left and
 returns outputs in input order.
 
-* A tensor on the CPU goes to ``gru_recurrence_plain``, a Python loop over t.
-* A CUDA tensor goes to the kernel in ``csrc/gru_fwd.cu`` or raises. The
-  kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-  ``_build/`` (rebuilt when the source's hash changes) and loaded with
-  ``ctypes``. Each launch adds one to ``KERNEL.launches``.
+``gru_recurrence_backward(x_proj, w_hh, b_hh, outs, grad, reverse)`` is the
+port of that kernel's ``custom_vjp`` backward (``_bwd``): from the forward's
+outputs and their cotangent it returns ``(dx_proj, dW_hh, db_hh)``.
+``GRURecurrence`` joins the two as a ``torch.autograd.Function``; its saved
+tensors are what ``_fwd`` keeps (x_proj, w_hh, b_hh, outs).
+
+* A tensor on the CPU goes to the plain versions, Python loops over t.
+* A CUDA tensor goes to the kernels in ``csrc/gru_fwd.cu`` and
+  ``csrc/gru_bwd.cu`` or raises. They are compiled with ``nvcc`` at first
+  use (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
+  (forward) or ``BACKWARD_KERNEL.launches`` (backward). Around the backward
+  kernel two products without a sequential dependence go to
+  ``torch.matmul``: the gate pre-activations of every step, recomputed from
+  the saved outputs before it, and dW_hh after it.
 
 Importing this module builds nothing.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Optional
+from typing import Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "gru_fwd.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from vae_gan_mark_tpu_torch.ops.cuda_build import INT, PTR, CudaKernel
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the GRU kernel needs the CUDA toolkit")
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/gru_fwd.cu`` unless a build of this exact source
-    exists. Returns the library's path and the compiler's output (empty
-    when nothing was compiled)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgru_fwd_{digest}.so"
-    if lib.exists():
-        return lib, ""
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-class CudaGRU:
-    """The loaded kernel library and its launch count."""
+class CudaGRU(CudaKernel):
+    """The forward kernel, ``csrc/gru_fwd.cu``."""
 
     def __init__(self):
-        self.launches = 0
-        self._lib: Optional[ctypes.CDLL] = None
-
-    def load(self) -> ctypes.CDLL:
-        if self._lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.gru_forward.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p]
-            lib.gru_forward.restype = ctypes.c_int
-            lib.gru_error_string.argtypes = [ctypes.c_int]
-            lib.gru_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+        super().__init__("gru_fwd.cu",
+                         {"gru_forward": [PTR] * 4 + [INT] * 4 + [PTR]},
+                         "gru_error_string")
 
     def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor,
                  b_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -95,39 +54,72 @@ class CudaGRU:
                              f"{x_proj.device}")
         length, batch, h3 = x_proj.shape
         hidden = h3 // 3
-        lib = self.load()
+        self.load()
         out = torch.empty((length, batch, hidden), dtype=torch.float32,
                           device=x_proj.device)
         with torch.cuda.device(x_proj.device):
-            stream = torch.cuda.current_stream(x_proj.device).cuda_stream
-            err = lib.gru_forward(x_proj.data_ptr(), w_hh.data_ptr(),
-                                  b_hh.data_ptr(), out.data_ptr(), length,
-                                  batch, hidden, int(reverse), stream)
-        if err != 0:
-            msg = lib.gru_error_string(err).decode()
-            raise RuntimeError(f"gru_forward launch failed: {msg} (L={length}"
-                               f", B={batch}, H={hidden})")
-        self.launches += 1
+            self.launch("gru_forward", x_proj.data_ptr(), w_hh.data_ptr(),
+                        b_hh.data_ptr(), out.data_ptr(), length, batch,
+                        hidden, int(reverse), _stream(x_proj),
+                        what=f"L={length}, B={batch}, H={hidden}")
         return out
 
 
+class CudaGRUBackward(CudaKernel):
+    """The backward kernel, ``csrc/gru_bwd.cu``: the sequential part of the
+    gradient, dx_proj and the W_hh-side cotangents dhp of every step."""
+
+    def __init__(self):
+        super().__init__("gru_bwd.cu",
+                         {"gru_backward": [PTR] * 8 + [INT] * 4 + [PTR]},
+                         "gru_bwd_error_string")
+
+    def __call__(self, x_proj: torch.Tensor, hp_outs: torch.Tensor,
+                 outs: torch.Tensor, grad: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, reverse: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if x_proj.device.type != "cuda":
+            raise ValueError(f"the GRU backward kernel takes CUDA tensors, "
+                             f"got {x_proj.device}")
+        length, batch, h3 = x_proj.shape
+        hidden = h3 // 3
+        self.load()
+        dxp = torch.empty_like(x_proj)
+        dhp = torch.empty_like(x_proj)
+        with torch.cuda.device(x_proj.device):
+            self.launch("gru_backward", x_proj.data_ptr(), hp_outs.data_ptr(),
+                        outs.data_ptr(), grad.data_ptr(), w_hh.data_ptr(),
+                        b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
+                        length, batch,
+                        hidden, int(reverse), _stream(x_proj),
+                        what=f"L={length}, B={batch}, H={hidden}")
+        return dxp, dhp
+
+
 KERNEL = CudaGRU()
+BACKWARD_KERNEL = CudaGRUBackward()
 
 
-def _check(x_proj: torch.Tensor, w_hh: torch.Tensor,
-           b_hh: torch.Tensor) -> None:
+def _check(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+           *per_step: torch.Tensor) -> None:
     if x_proj.dim() != 3 or x_proj.shape[2] % 3:
         raise ValueError(f"x_proj must be (L, B, 3H), got {tuple(x_proj.shape)}")
-    hidden = x_proj.shape[2] // 3
+    length, batch, h3 = x_proj.shape
+    hidden = h3 // 3
     if tuple(w_hh.shape) != (3 * hidden, hidden) or \
             tuple(b_hh.shape) != (3 * hidden,):
         raise ValueError(f"w_hh must be (3H, H) and b_hh (3H,) for H={hidden}"
                          f", got {tuple(w_hh.shape)} and {tuple(b_hh.shape)}")
-    for name, t in (("x_proj", x_proj), ("w_hh", w_hh), ("b_hh", b_hh)):
+    for t in per_step:
+        if tuple(t.shape) != (length, batch, hidden):
+            raise ValueError(f"outputs and their gradient must be (L, B, H) ="
+                             f" {(length, batch, hidden)}, got "
+                             f"{tuple(t.shape)}")
+    for t in (x_proj, w_hh, b_hh, *per_step):
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+            raise TypeError(f"GRU tensors must be float32, got {t.dtype}")
         if t.device != x_proj.device:
-            raise ValueError(f"{name} is on {t.device}, x_proj on "
+            raise ValueError(f"a GRU tensor is on {t.device}, x_proj on "
                              f"{x_proj.device}")
 
 
@@ -135,7 +127,8 @@ def gru_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    b_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """(L, B, 3H) input projections -> (L, B, H) hidden states, float32.
 
-    ``w_hh`` is torch's ``weight_hh`` (3H, H), ``b_hh`` is (3H,)."""
+    ``w_hh`` is torch's ``weight_hh`` (3H, H), ``b_hh`` is (3H,). No
+    gradient: ``gru_recurrence_grad`` is the differentiable form."""
     _check(x_proj, w_hh, b_hh)
     if x_proj.device.type == "cpu":
         return gru_recurrence_plain(x_proj, w_hh, b_hh, reverse)
@@ -164,3 +157,99 @@ def gru_recurrence_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
         h = (1.0 - z) * n + z * h
         out[t] = h
     return out
+
+
+def gru_recurrence_backward(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                            b_hh: torch.Tensor, outs: torch.Tensor,
+                            grad: torch.Tensor, reverse: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of ``gru_recurrence`` from its outputs ``outs`` and
+    their cotangent ``grad``: (dx_proj (L, B, 3H), dW_hh (3H, H),
+    db_hh (3H,)), float32."""
+    _check(x_proj, w_hh, b_hh, outs, grad)
+    if x_proj.device.type == "cpu":
+        return gru_backward_plain(x_proj, w_hh, b_hh, outs, grad, reverse)
+    if x_proj.device.type != "cuda":
+        raise RuntimeError(f"no GRU kernel for device {x_proj.device}")
+    return _backward_cuda(x_proj, w_hh.contiguous(), b_hh.contiguous(),
+                          outs.contiguous(), grad.contiguous(), reverse)
+
+
+def _backward_cuda(x_proj, w_hh, b_hh, outs, grad, reverse):
+    length, batch, h3 = x_proj.shape
+    hidden = h3 // 3
+    outs_flat = outs.view(length * batch, hidden)
+    # Every step's h_prev is a saved output, so the gate pre-activations are
+    # one product ahead of the kernel; the kernel keeps only W_hh's columns.
+    hp_outs = torch.addmm(b_hh, outs_flat, w_hh.t()).view(length, batch, h3)
+    dxp, dhp = BACKWARD_KERNEL(x_proj.contiguous(), hp_outs, outs, grad,
+                               w_hh, b_hh, reverse)
+    # dW_hh = sum over steps of dhp[t]^T h_prev[t]; the first step's h_prev
+    # is zero.
+    dhp_flat = dhp.view(length * batch, h3)
+    if reverse:
+        dw = dhp_flat[:-batch].t() @ outs_flat[batch:]
+    else:
+        dw = dhp_flat[batch:].t() @ outs_flat[:-batch]
+    return dxp, dw, dhp_flat.sum(0)
+
+
+def gru_backward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                       b_hh: torch.Tensor, outs: torch.Tensor,
+                       grad: torch.Tensor, reverse: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as a Python loop over t against the forward's order,
+    step for step the JAX kernel's ``_bwd``."""
+    length, batch, h3 = x_proj.shape
+    hidden = h3 // 3
+    zeros = x_proj.new_zeros((batch, hidden))
+    dxp = torch.empty_like(x_proj)
+    dw = torch.zeros_like(w_hh)
+    db = torch.zeros_like(b_hh)
+    dh_next = x_proj.new_zeros((batch, hidden))
+    for t in (range(length) if reverse else range(length - 1, -1, -1)):
+        tp = t + 1 if reverse else t - 1             # step of h_prev
+        h_prev = outs[tp] if 0 <= tp < length else zeros
+        dh = dh_next + grad[t]
+        hp = torch.matmul(h_prev, w_hh.t()) + b_hh
+        xr, xz, xn = x_proj[t].split(hidden, dim=1)
+        hr, hz, hn = hp.split(hidden, dim=1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+        dz_pre = dh * (h_prev - n) * z * (1.0 - z)
+        dr_pre = dn_pre * hn * r * (1.0 - r)
+        dhp = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=1)
+        dxp[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=1)
+        dh_next = dh * z + torch.matmul(dhp, w_hh)
+        dw += torch.matmul(dhp.t(), h_prev)
+        db += dhp.sum(0)
+    return dxp, dw, db
+
+
+class GRURecurrence(torch.autograd.Function):
+    """``gru_recurrence`` with its gradient: the forward kernel, then the
+    backward kernel on what the forward saved."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_hh, b_hh, reverse):
+        outs = gru_recurrence(x_proj, w_hh, b_hh, reverse)
+        ctx.save_for_backward(x_proj, w_hh, b_hh, outs)
+        ctx.reverse = reverse
+        return outs
+
+    @staticmethod
+    def backward(ctx, grad):
+        x_proj, w_hh, b_hh, outs = ctx.saved_tensors
+        dxp, dw, db = gru_recurrence_backward(
+            x_proj, w_hh, b_hh, outs, grad.contiguous(), ctx.reverse)
+        return dxp, dw, db, None
+
+
+def gru_recurrence_grad(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                        b_hh: torch.Tensor,
+                        reverse: bool = False) -> torch.Tensor:
+    """``gru_recurrence`` that autograd differentiates."""
+    return GRURecurrence.apply(x_proj, w_hh, b_hh, reverse)

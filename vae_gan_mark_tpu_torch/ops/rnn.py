@@ -3,9 +3,10 @@ semantics, gate order r, z, n).
 
 The input projection for every step is hoisted out of the recurrence into
 one float32 product (L*B, E) @ (E, 3H), as the JAX package leaves it to XLA
-outside its Pallas call; the recurrence goes through ``ops.gru``: the
-Hopper kernel for a CUDA tensor, its plain version for a CPU tensor. The
-reverse direction runs right to left and returns outputs in input order.
+outside its Pallas call; the recurrence goes through ``ops.gru``'s autograd
+function: the Hopper kernels (forward and backward) for a CUDA tensor, their
+plain versions for a CPU tensor. The reverse direction runs right to left
+and returns outputs in input order.
 Parameters carry ``nn.GRU``'s names (``weight_ih_l0``, ``bias_hh_l1_reverse``
 ...), so a reference ``state_dict`` loads as it is.
 """
@@ -13,12 +14,12 @@ Parameters carry ``nn.GRU``'s names (``weight_ih_l0``, ``bias_hh_l1_reverse``
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from vae_gan_mark_tpu_torch.ops.gru import gru_recurrence
+from vae_gan_mark_tpu_torch.ops.gru import gru_recurrence_grad
 
 
 def gru_layer(x_tm: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
@@ -28,7 +29,8 @@ def gru_layer(x_tm: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     length, batch, in_dim = x_tm.shape
     x_proj = torch.addmm(b_ih, x_tm.reshape(length * batch, in_dim).float(),
                          w_ih.t())
-    return gru_recurrence(x_proj.view(length, batch, -1), w_hh, b_hh, reverse)
+    return gru_recurrence_grad(x_proj.view(length, batch, -1), w_hh, b_hh,
+                               reverse)
 
 
 def _gru_params(module: nn.Module, suffix: str, in_dim: int,
@@ -64,7 +66,8 @@ class BiGRU(nn.Module):
     """Stacked bidirectional GRU: (B, L, E) -> (B, L, 2*hidden) in ``dtype``.
 
     Dropout (rate ``dropout``) applies between layers in train mode only,
-    like torch's inter-layer dropout."""
+    like torch's inter-layer dropout. Its mask is drawn from the
+    ``generator`` passed to ``forward``, never from torch's global RNG."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int = 2,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
@@ -84,12 +87,26 @@ class BiGRU(nn.Module):
                          getattr(self, f"weight_hh_{suffix}"),
                          getattr(self, f"bias_hh_{suffix}"), reverse)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = x.transpose(0, 1)                       # time-major (L, B, E)
         for layer in range(self.num_layers):
             y = torch.cat([self._direction(y, f"l{layer}", False),
                            self._direction(y, f"l{layer}_reverse", True)],
                           dim=-1)
-            if layer + 1 < self.num_layers and self.dropout > 0.0:
-                y = F.dropout(y, self.dropout, training=self.training)
+            if layer + 1 < self.num_layers and self.dropout > 0.0 \
+                    and self.training:
+                y = y * dropout_mask(y, self.dropout, generator)
         return y.transpose(0, 1).to(self.dtype)
+
+
+def dropout_mask(y: torch.Tensor, rate: float,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep-mask scaled by 1/(1 - rate), drawn from ``generator`` (which
+    lives on ``y``'s device)."""
+    if generator is None:
+        raise ValueError("train-mode dropout draws from an explicit "
+                         "torch.Generator; pass generator=")
+    keep = 1.0 - rate
+    mask = torch.empty_like(y).bernoulli_(keep, generator=generator)
+    return mask / keep

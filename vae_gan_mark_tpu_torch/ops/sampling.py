@@ -1,4 +1,4 @@
-"""VAE reparameterisation."""
+"""VAE reparameterisation and the KL term."""
 
 from __future__ import annotations
 
@@ -21,3 +21,14 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
                           dtype=torch.float32)
     return mu + eps.to(mu.device, torch.float32) * torch.exp(
         0.5 * logvar.float())
+
+
+def kl_divergence(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """The reference's mean-form KL, in float32:
+    -0.5 * mean over the non-batch dims of (1 + logvar - mu^2 - exp(logvar)),
+    then the batch mean (a mean, not a sum: the scale matters for the loss).
+    """
+    mu, logvar = mu.float(), logvar.float()
+    per_sample = -0.5 * torch.mean(1.0 + logvar - mu.square() - logvar.exp(),
+                                   dim=tuple(range(1, mu.dim())))
+    return per_sample.mean()

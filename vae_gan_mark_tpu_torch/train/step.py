@@ -1,0 +1,167 @@
+"""The GAN train step and the eval step (the JAX package's ``train/step.py``).
+
+``build_train_step(cfg)`` returns ``step(state, vgg, batch, generator,
+kl_weight) -> (state, metrics)``, the reference's per-batch schedule:
+
+1. One generator forward in train mode. Its graph is kept and its backward
+   runs once, on the G loss; BatchNorm's running statistics advance once,
+   here.
+2. The discriminator update on real images and ``fake.detach()``:
+   ``loss_D = 0.5 * (hinge_d_real + hinge_d_fake)``, one Adam step, no
+   clipping. With ``cfg.fused_disc_forward`` real and fake go through one
+   concatenated forward (InstanceNorm is per sample), so the spectral ``u``
+   advance once; otherwise two forwards advance them twice.
+3. The generator update against the updated discriminator: its forward on
+   ``fake`` advances ``u`` again, and its parameters take no gradient in
+   this phase. ``loss_G = recon_weight * L1 + kl_weight * KL + gan_weight *
+   hinge_g + perc_weight * perceptual``; G's gradient is clipped to the
+   global norm, then one Adam step.
+
+``generator`` is a ``torch.Generator`` on the batch's device: the
+reparameterisation noise (unless ``batch["eps"]`` injects it) and the
+BiGRU's dropout draw from it. ``kl_weight`` is an argument of every call, so
+KL annealing needs no rebuild. Metrics: ``loss_G, loss_D, recon, kl, gan_g,
+perc`` as 0-d tensors.
+
+``build_eval_step(cfg)`` returns ``step(state, vgg, batch, generator,
+kl_weight) -> (metrics, fake)``, the JAX eval step's signature: G in eval
+mode, ``recon, kl, psnr, masked_l1, mark_recovery``, and with
+``cfg.full_loss_val`` also ``gan_g, perc, loss_G, loss_D`` from a
+discriminator that does not advance ``u``.
+
+Precision: G's convolutions run in the compute dtype. The discriminator
+computes in float32 in both modes, as the JAX package's does, and the JAX
+package runs its float32 work (D, the GRU, their gradients) at HIGH or
+HIGHEST precision; so TF32 stays off for the whole step, backward included.
+BatchNorm statistics, the KL term and the losses are float32.
+
+A batch is a dict of tensors on one device: ``ru``, ``en`` (B, H, W, 3),
+``mask`` (B, H, W, 1) float32, ``text`` (B, L) int64, optionally ``eps``
+(B, 1, 1, z_ch); ``batch_to_device`` makes one from numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+
+from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.eval import mark_recovery_rate, masked_l1
+from vae_gan_mark_tpu_torch.losses import (
+    hinge_d_fake, hinge_d_real, hinge_g, kl_divergence, l1_loss,
+    perceptual_loss)
+from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
+from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
+from vae_gan_mark_tpu_torch.train.state import (
+    TrainState, clip_by_global_norm_)
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+def batch_to_device(batch: Mapping[str, np.ndarray],
+                    device: Union[str, torch.device]) -> Batch:
+    """numpy batch -> tensors on ``device`` (``text`` as int64)."""
+    out = {}
+    for key in ("ru", "en", "mask", "text", "eps"):
+        if key in batch:
+            value = torch.from_numpy(np.ascontiguousarray(batch[key]))
+            value = value.long() if key == "text" else value.float()
+            out[key] = value.to(device)
+    return out
+
+
+def _g_loss(cfg: VariantConfig, kl_weight, recon_l, kl, gan, perc):
+    return (cfg.recon_weight * recon_l + kl_weight * kl
+            + cfg.gan_weight * gan + cfg.perc_weight * perc)
+
+
+def build_train_step(cfg: VariantConfig):
+    dtype = torch_dtype(cfg.compute_dtype)
+
+    def step(state: TrainState, vgg: VGG16Features, batch: Batch,
+             generator: torch.Generator,
+             kl_weight) -> Tuple[TrainState, Metrics]:
+        g_model, d_model = state.generator, state.discriminator
+        g_model.train()
+        d_model.train()
+        real = batch["en"]
+        with precision_scope(torch.float32):
+            # 1. Generator forward; its backward runs once, in phase 3.
+            fake, mu, logvar = g_model(batch["ru"], batch["mask"],
+                                       batch["text"], eps=batch.get("eps"),
+                                       generator=generator)
+
+            # 2. Discriminator update.
+            fake_sg = fake.detach()
+            if cfg.fused_disc_forward:
+                preds = d_model(torch.cat([real, fake_sg]).to(dtype))
+                real_preds, fake_preds = preds.chunk(2)
+            else:
+                real_preds = d_model(real.to(dtype))
+                fake_preds = d_model(fake_sg.to(dtype))
+            loss_d = 0.5 * (hinge_d_real(real_preds)
+                            + hinge_d_fake(fake_preds))
+            state.opt_d.zero_grad(set_to_none=True)
+            loss_d.backward()
+            state.opt_d.step()
+
+            # 3. Generator update against the updated discriminator.
+            d_model.requires_grad_(False)
+            try:
+                fake_preds = d_model(fake.to(dtype))
+                recon_l = l1_loss(fake, real)
+                kl = kl_divergence(mu, logvar)
+                gan = hinge_g(fake_preds)
+                perc = perceptual_loss(vgg, fake, real)
+                loss_g = _g_loss(cfg, kl_weight, recon_l, kl, gan, perc)
+                state.opt_g.zero_grad(set_to_none=True)
+                loss_g.backward()
+            finally:
+                d_model.requires_grad_(True)
+            clip_by_global_norm_(g_model.parameters(), cfg.grad_clip_norm)
+            state.opt_g.step()
+        state.step += 1
+        metrics = {"loss_G": loss_g, "loss_D": loss_d, "recon": recon_l,
+                   "kl": kl, "gan_g": gan, "perc": perc}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def build_eval_step(cfg: VariantConfig):
+    dtype = torch_dtype(cfg.compute_dtype)
+
+    def step(state: TrainState, vgg: VGG16Features, batch: Batch,
+             generator: torch.Generator,
+             kl_weight) -> Tuple[Metrics, torch.Tensor]:
+        g_model, d_model = state.generator, state.discriminator
+        g_model.eval()
+        real, mask = batch["en"], batch["mask"]
+        with torch.no_grad(), precision_scope(torch.float32):
+            fake, mu, logvar = g_model(batch["ru"], mask, batch["text"],
+                                       eps=batch.get("eps"),
+                                       generator=generator)
+            recon_l = l1_loss(fake, real)
+            kl = kl_divergence(mu, logvar)
+            mse = torch.mean(torch.square(fake - real.float()))
+            metrics = {
+                "recon": recon_l, "kl": kl,
+                "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-10)),
+                "masked_l1": masked_l1(fake, real, mask),
+                "mark_recovery": mark_recovery_rate(fake, real, mask)}
+            if cfg.full_loss_val:
+                fake_preds = d_model(fake.to(dtype), update_sn=False)
+                real_preds = d_model(real.to(dtype), update_sn=False)
+                gan = hinge_g(fake_preds)
+                perc = perceptual_loss(vgg, fake, real)
+                metrics.update({
+                    "gan_g": gan, "perc": perc,
+                    "loss_G": _g_loss(cfg, kl_weight, recon_l, kl, gan, perc),
+                    "loss_D": 0.5 * (hinge_d_real(real_preds)
+                                     + hinge_d_fake(fake_preds))})
+        return metrics, fake
+
+    return step

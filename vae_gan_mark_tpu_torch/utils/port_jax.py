@@ -1,10 +1,15 @@
-"""Weight bridge: the JAX generator's ``params``/``batch_stats`` trees, as
-nested dicts of numpy arrays, -> this package's ``state_dict``.
+"""Weight bridge: the JAX package's parameter trees, as nested dicts of numpy
+arrays, -> this package's ``state_dict``s, for the generator
+(``params``/``batch_stats``), the discriminator (``params``/``spectral``, the
+power-iteration ``u`` of every spectral conv) and the frozen VGG16 head
+(``params``).
 
 The port's keys are the reference's (``style_vae_encoder_module.e_conv1.0
-.weight``, ``char_text_encoder_module.rnn.weight_hh_l0_reverse``, ...), so the
-JAX package's ``utils/port_torch.py:port_v2_generator`` is this bridge's
-inverse. Layout changes:
+.weight``, ``char_text_encoder_module.rnn.weight_hh_l0_reverse``,
+``body.0.weight_orig``, ``net.0.weight`` ...), so the JAX package's
+``utils/port_torch.py`` functions ``port_v2_generator``,
+``port_discriminator`` and ``port_vgg_head`` are this bridge's inverses.
+Layout changes:
 
 * Conv kernels HWIO -> OIHW.
 * ConvTranspose kernels: flip both spatial axes, then (kh, kw, in, out) ->
@@ -12,10 +17,14 @@ inverse. Layout changes:
 * GRU ``w_ih`` (in, 3H) and ``w_hh`` (H, 3H) transposed to torch's (3H, .).
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
-One table (``_entries``) lists every leaf with its JAX path, its port key,
-its layout change and its JAX shape; the bridge and the seeded random init
-both read it. Covers the char-conditioned U-Net generators
-(v2 with FiLM, unet without).
+One table per network (``_entries``, ``_disc_entries``, ``_vgg_entries``)
+lists every leaf with its JAX path, its port key, its layout change and its
+JAX shape; the bridge and the seeded random init both read it. Covers the
+char-conditioned U-Net generators (v2 with FiLM, unet without), the
+unconditional discriminator and VGG16 ``features[:16]``. The seeded trees
+stand in for weights that cannot be reproduced with torch's RNG (the JAX
+initialisers, VGG's fixed ``PRNGKey(16)``), so that a run without JAX can
+build every network.
 """
 
 from __future__ import annotations
@@ -26,12 +35,13 @@ import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.models.vgg import VGG16_HEAD_CFG
 
 Tree = Dict[str, object]
 
 
 class Entry(NamedTuple):
-    collection: str            # "params" or "batch_stats"
+    collection: str            # "params", "batch_stats" or "spectral"
     path: Tuple[str, ...]      # JAX tree path inside the collection
     key: str                   # port state-dict key
     kind: str                  # "conv", "tconv", "gru" or "plain"
@@ -137,6 +147,49 @@ def _entries(cfg: VariantConfig) -> Iterator[Entry]:
                 f"{sp}.final_image_conv.bias", "plain", (cfg.out_ch,))
 
 
+DISC_CHANS = (3, 64, 128, 256, 512)
+
+
+def _disc_entries() -> Iterator[Entry]:
+    """The unconditional ``PatchDiscriminator``: spectral convs at the
+    reference's indices 0, 2, 5, 8, InstanceNorms at 3, 6, 9, the final conv
+    at 11."""
+    for i, idx in enumerate((0, 2, 5, 8)):
+        cin, cout = DISC_CHANS[i], DISC_CHANS[i + 1]
+        jp = (f"SpectralConv_{i}",)
+        yield Entry("params", jp + ("kernel",), f"body.{idx}.weight_orig",
+                    "conv", (4, 4, cin, cout))
+        yield Entry("params", jp + ("bias",), f"body.{idx}.bias", "plain",
+                    (cout,))
+        yield Entry("spectral", jp + ("u",), f"body.{idx}.weight_u", "plain",
+                    (cout,))
+    for i, idx in enumerate((3, 6, 9)):
+        jp, ch = (f"InstanceNorm_{i}",), DISC_CHANS[i + 2]
+        yield Entry("params", jp + ("scale",), f"body.{idx}.weight", "plain",
+                    (ch,))
+        yield Entry("params", jp + ("bias",), f"body.{idx}.bias", "plain",
+                    (ch,))
+    yield Entry("params", ("Conv_0", "kernel"), "body.11.weight", "conv",
+                (4, 4, DISC_CHANS[-1], 1))
+    yield Entry("params", ("Conv_0", "bias"), "body.11.bias", "plain", (1,))
+
+
+def _vgg_entries() -> Iterator[Entry]:
+    """VGG16 ``features[:16]``: JAX ``conv0`` .. ``conv6`` at the
+    Sequential indices 0, 2, 5, 7, 10, 12, 14."""
+    idx, conv, prev = 0, 0, 3
+    for c in VGG16_HEAD_CFG:
+        if c == "M":
+            idx += 1
+            continue
+        jp = (f"conv{conv}",)
+        yield Entry("params", jp + ("kernel",), f"net.{idx}.weight", "conv",
+                    (3, 3, prev, c))
+        yield Entry("params", jp + ("bias",), f"net.{idx}.bias", "plain",
+                    (c,))
+        idx, conv, prev = idx + 2, conv + 1, c
+
+
 def _get(tree: Tree, path: Tuple[str, ...]):
     for name in path:
         tree = tree[name]
@@ -176,32 +229,70 @@ def _random_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
         value = rng.uniform(0.5, 2.0, e.shape)      # variances stay positive
     elif name == "embedding":
         value = rng.normal(0.0, 1.0, e.shape)
+    elif name == "u":                               # a unit vector
+        value = rng.normal(0.0, 1.0, e.shape)
+        value /= np.linalg.norm(value)
     else:                                           # biases, running means
         value = rng.normal(0.0, 0.1, e.shape)
     return value.astype(np.float32)
+
+
+def _random_trees(entries: Iterator[Entry], seed: int) -> Dict[str, Tree]:
+    rng = np.random.default_rng(seed)
+    trees: Dict[str, Tree] = {}
+    for e in entries:
+        _set(trees.setdefault(e.collection, {}), e.path, _random_leaf(rng, e))
+    return trees
+
+
+def _state_dict(entries: Iterator[Entry],
+                trees: Dict[str, Tree]) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for e in entries:
+        value = np.asarray(_get(trees[e.collection], e.path), np.float32)
+        if value.shape != e.shape:
+            raise ValueError(f"{'/'.join(e.path)}: shape {value.shape}, "
+                             f"expected {e.shape}")
+        sd[e.key] = torch.from_numpy(np.array(to_port_layout(e.kind, value),
+                                              np.float32))
+    return sd
 
 
 def random_jax_tree(cfg: VariantConfig, seed: int) -> Tuple[Tree, Tree]:
     """Seeded random (params, batch_stats) numpy trees in the JAX
     generator's layout: He-normal conv kernels, torch's GRU init, BN
     variances in [0.5, 2]."""
-    rng = np.random.default_rng(seed)
-    trees: Dict[str, Tree] = {"params": {}, "batch_stats": {}}
-    for e in _entries(cfg):
-        _set(trees[e.collection], e.path, _random_leaf(rng, e))
+    trees = _random_trees(_entries(cfg), seed)
     return trees["params"], trees["batch_stats"]
+
+
+def random_discriminator_tree(seed: int) -> Tuple[Tree, Tree]:
+    """Seeded random (params, spectral) numpy trees in the JAX
+    discriminator's layout; every ``u`` a unit vector."""
+    trees = _random_trees(_disc_entries(), seed)
+    return trees["params"], trees["spectral"]
+
+
+def random_vgg_tree(seed: int) -> Tree:
+    """Seeded random VGG16-head params in the JAX layout (``conv0`` ..
+    ``conv6``, He-normal kernels)."""
+    return _random_trees(_vgg_entries(), seed)["params"]
 
 
 def state_dict_from_jax(params: Tree, batch_stats: Tree,
                         cfg: VariantConfig) -> Dict[str, torch.Tensor]:
     """JAX generator trees (numpy leaves) -> the port's ``state_dict``."""
-    trees = {"params": params, "batch_stats": batch_stats}
-    sd = {}
-    for e in _entries(cfg):
-        value = np.asarray(_get(trees[e.collection], e.path), np.float32)
-        if value.shape != e.shape:
-            raise ValueError(f"{'/'.join(e.path)}: shape {value.shape}, "
-                             f"expected {e.shape}")
-        sd[e.key] = torch.from_numpy(
-            np.ascontiguousarray(to_port_layout(e.kind, value)))
-    return sd
+    return _state_dict(_entries(cfg), {"params": params,
+                                       "batch_stats": batch_stats})
+
+
+def discriminator_state_dict_from_jax(params: Tree, spectral: Tree
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX discriminator trees -> ``PatchDiscriminator``'s ``state_dict``."""
+    return _state_dict(_disc_entries(), {"params": params,
+                                         "spectral": spectral})
+
+
+def vgg_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """JAX VGG16-head params -> ``VGG16Features``'s ``state_dict``."""
+    return _state_dict(_vgg_entries(), {"params": params})
