@@ -8,19 +8,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. build the three kernels (``vae_gan_mark_tpu_torch/csrc/gru_fwd.cu``,
    ``gru_bwd.cu``, ``conv3x3.cu``) with ``nvcc`` for ``sm_90a`` from the
    checkout's sources, one ``nvcc`` each, all at once, and print each one's
-   registers and spills;
+   registers, spills and any wgmma serialisation warning;
 3. GRU forward: hold the kernel against its plain PyTorch version at L=60,
    H in {16, 256}, B in {1, 16, 128}, both directions, float32 with TF32
    off, and time the kernel, the plain version, one ``torch.nn.GRU`` call
    (cuDNN) on the same inputs, and the bound;
 4. GRU backward: the same shapes for dx_proj, dW_hh and db_hh against the
-   plain backward; time the backward (kernel and its two products), the
-   kernel alone, forward + backward through the autograd function, the
-   plain backward, cuDNN's backward and forward + backward, and the bound;
-5. conv3x3: hold the kernel against ``F.conv2d`` at the probe's check
-   shapes, drive it once at each of the probe's two benchmark shapes
-   (counting launches), and time it there against the plain version,
-   cuDNN's bf16 channels-last ``F.conv2d`` and the bound;
+   plain backward, each direction alone and both directions of a layer in
+   one launch; print ``cudaOccupancyMaxActiveClusters``; at H=256, B=16
+   and 128, time the pair's backward (kernel and its products), the kernel
+   alone, one direction's backward, forward + backward through the
+   bidirectional autograd function, the plain backwards, cuDNN's
+   bidirectional backward and forward + backward, and the bound;
+5. conv3x3 (tensor-core implicit GEMM): hold the kernel against
+   ``F.conv2d`` at the probe's check shapes and at a width that is not a
+   multiple of its tile, drive it once at each of the probe's two benchmark
+   shapes (counting launches), and time it there against the plain
+   version, cuDNN's bf16 channels-last ``F.conv2d`` and the bound (TFLOP/s,
+   bound/ms, kernel/cuDNN);
 6. serve the v2 generator at full width (448x64) through
    ``InferenceEngine(device="cuda")`` with seeded random weights: requests
    of 16, 5 and 33 patches and one full-image render, counting GRU kernel
@@ -29,7 +34,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 7. train v2 at full width with seeded weights through the weight bridge
    (BiGRU dropout 0.1 from a generator): 5 bf16 steps and 5 float32 steps
    (TF32 off) at batch 16, each run with the counts at 0 before it and read
-   after (4 forward + 4 backward GRU launches per step), losses finite, the
+   after (4 forward + 2 backward GRU launches per step: one backward per
+   BiGRU layer for both directions), losses finite, the
    spectral u and BatchNorm running statistics moved; one float32 step at
    B=2 on the card against the CPU; bf16 img/s at batch 16 and 128; one
    profiled step per precision by kernel class; one eval step;
@@ -131,15 +137,16 @@ def gru_bound(length: int, batch: int, hidden: int):
     return bound(flops, nbytes, FP32_FLOPS)
 
 
-def gru_backward_bound(length: int, batch: int, hidden: int):
+def gru_backward_bound(length: int, batch: int, hidden: int,
+                       directions: int = 1):
     """The backward's three products (gate pre-activations, the dh
     recurrence, dW_hh), each 2*L*B*H*3H flops in float32; bytes: x_proj,
     outs, their cotangent, W_hh and b_hh read, dx_proj, dW_hh, db_hh
-    written."""
+    written; each per direction."""
     flops = 3 * 2 * length * batch * hidden * 3 * hidden
     nbytes = 4 * (2 * length * batch * 3 * hidden + 2 * length * batch
                   * hidden + 2 * (3 * hidden * hidden + 3 * hidden))
-    return bound(flops, nbytes, FP32_FLOPS)
+    return bound(directions * flops, directions * nbytes, FP32_FLOPS)
 
 
 def conv_bound(n: int, h: int, w: int, c: int):
@@ -159,17 +166,24 @@ def gru_inputs(gen, batch: int, hidden: int):
     return x_proj, w_hh, b_hh
 
 
-def cudnn_gru(w_hh, b_hh):
+def cudnn_gru(w_hh, b_hh, reverse_weights=None):
     """``torch.nn.GRU`` computing the recurrence on x_proj: an identity
     input projection makes its x @ W_ih^T + b_ih equal x_proj (one extra
-    (3H x 3H) product per row)."""
+    (3H x 3H) product per row). With ``reverse_weights`` (W_hh, b_hh of the
+    right-to-left direction) it is bidirectional, both directions reading
+    the same x_proj."""
     hidden = w_hh.shape[1]
-    lib = torch.nn.GRU(3 * hidden, hidden).cuda()
+    lib = torch.nn.GRU(3 * hidden, hidden,
+                       bidirectional=reverse_weights is not None).cuda()
+    directions = [("l0", (w_hh, b_hh))]
+    if reverse_weights is not None:
+        directions.append(("l0_reverse", reverse_weights))
     with torch.no_grad():
-        lib.weight_ih_l0.copy_(torch.eye(3 * hidden))
-        lib.bias_ih_l0.zero_()
-        lib.weight_hh_l0.copy_(w_hh)
-        lib.bias_hh_l0.copy_(b_hh)
+        for suffix, (w, b) in directions:
+            getattr(lib, f"weight_ih_{suffix}").copy_(torch.eye(3 * hidden))
+            getattr(lib, f"bias_ih_{suffix}").zero_()
+            getattr(lib, f"weight_hh_{suffix}").copy_(w)
+            getattr(lib, f"bias_hh_{suffix}").copy_(b)
     return lib
 
 
@@ -184,7 +198,7 @@ def phase_build(modules) -> dict:
     report = {}
     for source, (lib, log) in built.items():
         lines = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "wgmma" in ln]
         report[source.name] = dict(library=os.path.relpath(lib, ROOT),
                                    ptxas=lines)
         for line in lines:
@@ -234,78 +248,107 @@ def phase_gru_forward(gru) -> list:
     return rows
 
 
-def phase_gru_backward(gru) -> list:
-    """Backward kernel vs plain at every shape; timings at H=256 for the
-    training batches 16 and 128."""
+def phase_gru_backward(gru) -> dict:
+    """Backward kernel vs plain at every shape: each direction alone (one
+    launch each) and both directions of a layer in one launch; timings of
+    the pair at H=256 for the training batches 16 and 128."""
     gen = torch.Generator(device="cuda").manual_seed(1)
+    clusters = {h: gru.BACKWARD_KERNEL.max_active_clusters(h)
+                for h in (16, 256)}
+    check(min(clusters.values()) > 0, f"no cluster fits: {clusters}")
+    print(f"[gru bwd] cudaOccupancyMaxActiveClusters (8 CTAs each): "
+          f"{clusters}", flush=True)
     rows = []
     for hidden in (16, 256):
         for batch in (1, 16, 128):
-            x_proj, w_hh, b_hh = gru_inputs(gen, batch, hidden)
+            dirs = []
             for reverse in (False, True):
+                x_proj, w_hh, b_hh = gru_inputs(gen, batch, hidden)
                 outs = gru.gru_recurrence(x_proj, w_hh, b_hh, reverse)
                 grad = torch.randn(outs.shape, device="cuda", generator=gen)
-                got = gru.gru_recurrence_backward(x_proj, w_hh, b_hh, outs,
-                                                  grad, reverse)
-                torch.cuda.synchronize()
-                ref = gru.gru_backward_plain(x_proj, w_hh, b_hh, outs, grad,
-                                             reverse)
-                errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
-                ok = all(torch.allclose(a, b, atol=BACKWARD_ATOL,
-                                        rtol=BACKWARD_RTOL)
-                         for a, b in zip(got, ref))
-                check(ok, f"backward kernel vs plain H={hidden} B={batch} "
-                          f"reverse={reverse}: max abs errs (dx, dW, db) "
-                          f"{errs}")
-                row = dict(H=hidden, B=batch, reverse=reverse,
-                           max_abs_err=max(errs), errs=errs)
-                if hidden == 256 and batch in (16, 128) and not reverse:
-                    row.update(time_gru_backward(gru, x_proj, w_hh, b_hh,
-                                                 outs, grad, gen))
-                rows.append(row)
-                timing = "".join(f" {k}={row[k]:.4f}" for k in (
-                    "ms", "kernel_ms", "fwd_bwd_ms", "plain_ms", "library_ms",
-                    "library_fwd_bwd_ms", "bound_ms") if k in row)
-                print(f"[gru bwd] L={L_TEXT} H={hidden:3d} B={batch:3d} "
-                      f"reverse={int(reverse)} errs(dx,dW,db)="
-                      f"{errs[0]:.2e},{errs[1]:.2e},{errs[2]:.2e}{timing}",
-                      flush=True)
-    return rows
+                dirs.append((x_proj, w_hh, b_hh, outs, grad))
+            refs = [gru.gru_backward_plain(*d, rev)
+                    for d, rev in zip(dirs, (False, True))]
+            single = [gru.gru_recurrence_backward(*d, rev)
+                      for d, rev in zip(dirs, (False, True))]
+            before = gru.BACKWARD_KERNEL.launches
+            pair = gru.gru_bidirectional_backward(*dirs)
+            torch.cuda.synchronize()
+            pair_launches = gru.BACKWARD_KERNEL.launches - before
+            check(pair_launches == 1,
+                  f"the bidirectional backward made {pair_launches} launches")
+            errs = {}
+            for name, got in (("single", single), ("pair", pair)):
+                for rev, got_d, ref in zip((False, True), got, refs):
+                    e = [(a - b).abs().max().item()
+                         for a, b in zip(got_d, ref)]
+                    ok = all(torch.allclose(a, b, atol=BACKWARD_ATOL,
+                                            rtol=BACKWARD_RTOL)
+                             for a, b in zip(got_d, ref))
+                    check(ok, f"backward kernel ({name}) vs plain H={hidden}"
+                              f" B={batch} reverse={rev}: max abs errs "
+                              f"(dx, dW, db) {e}")
+                    errs[f"{name}_{'reverse' if rev else 'forward'}"] = e
+            row = dict(H=hidden, B=batch, errs=errs,
+                       max_abs_err=max(max(e) for e in errs.values()),
+                       directions_per_launch=len(pair) / pair_launches)
+            if hidden == 256 and batch in (16, 128):
+                row.update(time_gru_backward(gru, dirs))
+                needed = 2 * -(-batch // 16)     # (direction, 16-row tile)
+                row["waves"] = -(-needed // clusters[hidden])
+            rows.append(row)
+            timing = "".join(f" {k}={row[k]:.4f}" for k in (
+                "ms", "kernel_ms", "single_ms", "fwd_bwd_ms", "plain_ms",
+                "library_ms", "library_fwd_bwd_ms", "bound_ms") if k in row)
+            print(f"[gru bwd] L={L_TEXT} H={hidden:3d} B={batch:3d} both "
+                  f"directions: max abs err {row['max_abs_err']:.2e}"
+                  f"{timing}" + (f" waves={row['waves']}"
+                                 if "waves" in row else ""), flush=True)
+    return dict(rows=rows, max_active_clusters=clusters)
 
 
-def time_gru_backward(gru, x_proj, w_hh, b_hh, outs, grad, gen) -> dict:
-    length, batch, h3 = x_proj.shape
+def time_gru_backward(gru, dirs) -> dict:
+    """The pair's backward at one shape: whole (kernel and its products),
+    the kernel alone, forward + backward through the autograd function,
+    one direction's whole backward, the plain backwards, and cuDNN's
+    bidirectional ``nn.GRU`` backward alone and forward + backward."""
+    (x_f, w_f, b_f, outs_f, grad_f), (x_b, w_b, b_b, outs_b, grad_b) = dirs
+    length, batch, h3 = x_f.shape
     hidden = h3 // 3
-    ms = cuda_time_ms(lambda: gru.gru_recurrence_backward(
-        x_proj, w_hh, b_hh, outs, grad, False), 50)
-    hp_outs = torch.addmm(b_hh, outs.view(-1, hidden), w_hh.t()).view(
-        length, batch, h3)
-    kernel_ms = cuda_time_ms(lambda: gru.BACKWARD_KERNEL(
-        x_proj, hp_outs, outs, grad, w_hh, b_hh, False), 50)
-    plain_ms = cuda_time_ms(lambda: gru.gru_backward_plain(
-        x_proj, w_hh, b_hh, outs, grad, False), 5)
-    xg, wg, bg = (t.clone().requires_grad_() for t in (x_proj, w_hh, b_hh))
+    ms = cuda_time_ms(lambda: gru.gru_bidirectional_backward(*dirs), 50)
+    single_ms = cuda_time_ms(lambda: gru.gru_recurrence_backward(
+        *dirs[0], False), 50)
+    prepared = [(x, torch.addmm(b, o.view(-1, hidden), w.t()).view(
+        length, batch, h3), o, g, w, b, rev)
+        for (x, w, b, o, g), rev in zip(dirs, (False, True))]
+    kernel_ms = cuda_time_ms(lambda: gru.BACKWARD_KERNEL(prepared), 50)
+    plain_ms = cuda_time_ms(lambda: [gru.gru_backward_plain(*d, rev) for d, rev
+                                     in zip(dirs, (False, True))], 3)
+    leaves = [t.clone().requires_grad_() for t in (x_f, w_f, b_f, x_b, w_b,
+                                                    b_b)]
 
     def fwd_bwd():
-        gru.gru_recurrence_grad(xg, wg, bg, False).backward(grad)
+        torch.autograd.backward(gru.bigru_recurrence_grad(*leaves),
+                                [grad_f, grad_b])
 
     fwd_bwd_ms = cuda_time_ms(fwd_bwd, 30)
-    lib = cudnn_gru(w_hh, b_hh)
-    lib_x = x_proj.clone().requires_grad_()
+    lib = cudnn_gru(w_f, b_f, (w_b, b_b))
+    lib_x = x_f.clone().requires_grad_()
     lib_params = list(lib.parameters())
+    lib_grad = torch.cat([grad_f, grad_b], dim=-1)
 
     def lib_fwd_bwd():
-        torch.autograd.grad(lib(lib_x)[0], [lib_x] + lib_params, grad)
+        torch.autograd.grad(lib(lib_x)[0], [lib_x] + lib_params, lib_grad)
 
     library_fwd_bwd_ms = cuda_time_ms(lib_fwd_bwd, 30)
     lib_out = lib(lib_x)[0]
     library_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        lib_out, [lib_x] + lib_params, grad, retain_graph=True), 30)
-    bound_ms, bound_by = gru_backward_bound(length, batch, hidden)
-    return dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                fwd_bwd_ms=fwd_bwd_ms, library_ms=library_ms,
-                library_fwd_bwd_ms=library_fwd_bwd_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+        lib_out, [lib_x] + lib_params, lib_grad, retain_graph=True), 30)
+    bound_ms, bound_by = gru_backward_bound(length, batch, hidden, 2)
+    return dict(ms=ms, kernel_ms=kernel_ms, single_ms=single_ms,
+                plain_ms=plain_ms, fwd_bwd_ms=fwd_bwd_ms,
+                library_ms=library_ms, library_fwd_bwd_ms=library_fwd_bwd_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def conv_inputs(gen, n, h, w, c):
@@ -317,20 +360,21 @@ def conv_inputs(gen, n, h, w, c):
 def phase_conv(conv_probe) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(2)
     checks = []
-    for (h, w) in ((16, 32), (64, 448)):
-        for c, f in ((64, 2), (32, 4)):
-            x, k = conv_inputs(gen, 2, h, w, c)
-            y = conv_probe.conv3x3_superp(x, k, f).float()
-            torch.cuda.synchronize()
-            ref = conv_probe.conv3x3_plain(x, k).float()
-            abs_err = (y - ref).abs().max().item()
-            err = abs_err / ref.abs().max().item()
-            check(err < CONV_RULE, f"conv3x3 vs F.conv2d (2,{h},{w}) C={c} "
-                                   f"f={f}: {err}")
-            checks.append(dict(shape=[2, h, w, c], f=f, rel_err=err,
-                               max_abs_err=abs_err))
-            print(f"[conv] check (2,{h},{w}) C={c} f={f}: max|err|/max|ref| "
-                  f"= {err:.3e} (rule {CONV_RULE})", flush=True)
+    shapes = [(h, w, c, f) for (h, w) in ((16, 32), (64, 448))
+              for c, f in ((64, 2), (32, 4))] + [(64, 40, 64, 2)]
+    for h, w, c, f in shapes:       # W=40: not a multiple of the tile
+        x, k = conv_inputs(gen, 2, h, w, c)
+        y = conv_probe.conv3x3_superp(x, k, f).float()
+        torch.cuda.synchronize()
+        ref = conv_probe.conv3x3_plain(x, k).float()
+        abs_err = (y - ref).abs().max().item()
+        err = abs_err / ref.abs().max().item()
+        check(err < CONV_RULE, f"conv3x3 vs F.conv2d (2,{h},{w}) C={c} "
+                               f"f={f}: {err}")
+        checks.append(dict(shape=[2, h, w, c], f=f, rel_err=err,
+                           max_abs_err=abs_err))
+        print(f"[conv] check (2,{h},{w}) C={c} f={f}: max|err|/max|ref| "
+              f"= {err:.3e} (rule {CONV_RULE})", flush=True)
 
     # The probe's benchmark shapes are this kernel's own path: counts at 0
     # just before, read just after.
@@ -364,11 +408,15 @@ def phase_conv(conv_probe) -> dict:
         rows[name] = dict(shape=[n, h, w, c], f=f, rel_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by,
-                          tflops=2 * n * h * w * 9 * c * c / ms / 1e9)
-        print(f"[conv] {name} {(n, h, w, c)}: err {err:.3e} ms={ms:.3f} "
-              f"plain_ms={plain_ms:.3f} cudnn_bf16_ms={library_ms:.3f} "
+                          tflops=2 * n * h * w * 9 * c * c / ms / 1e9,
+                          bound_share=bound_ms / ms,
+                          vs_library=ms / library_ms)
+        print(f"[conv] {name} {(n, h, w, c)}: err {err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.3f} cudnn_bf16_ms={library_ms:.4f} "
               f"bound_ms={bound_ms:.4f} ({bound_by}) "
-              f"{rows[name]['tflops']:.1f} TFLOP/s", flush=True)
+              f"{rows[name]['tflops']:.1f} TFLOP/s, bound/ms "
+              f"{bound_ms / ms:.3f}, kernel/cuDNN {ms / library_ms:.3f}",
+              flush=True)
     return dict(checks=checks, launches=launches, shapes=rows)
 
 
@@ -547,8 +595,8 @@ def run_train_path(gru, cfg, weights, name: str) -> dict:
     launches = dict(forward=gru.KERNEL.launches,
                     backward=gru.BACKWARD_KERNEL.launches)
     check(launches == dict(forward=4 * TRAIN_STEPS,
-                           backward=4 * TRAIN_STEPS),
-          f"{name} train: GRU launches {launches}, expected 4 + 4 per step "
+                           backward=2 * TRAIN_STEPS),
+          f"{name} train: GRU launches {launches}, expected 4 + 2 per step "
           f"over {TRAIN_STEPS} steps")
     history = [{k: float(v) for k, v in m.items()} for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
@@ -719,6 +767,7 @@ def phase_train(gru, card: str) -> dict:
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
     ("gru forward kernel", ("gru_fwd_kernel",)),
     ("gru backward kernel", ("gru_bwd_kernel",)),
+    ("conv3x3 probe kernel", ("conv3x3_kernel",)),
     ("conv dgrad", ("dgrad",)),
     ("conv wgrad", ("wgrad",)),
     ("upsample", ("upsample",)),
@@ -800,15 +849,15 @@ def main() -> int:
     t_start = time.perf_counter()
     build = phase_build([gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL])
     forward_rows = phase_gru_forward(gru)
-    backward_rows = phase_gru_backward(gru)
+    backward = phase_gru_backward(gru)
     conv = phase_conv(conv_probe)
     serve = phase_serve(gru, card)
     train = phase_train(gru, card)
 
     fwd_row = next(r for r in forward_rows
                    if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
-    bwd_row = next(r for r in backward_rows
-                   if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
+    bwd_row = next(r for r in backward["rows"]
+                   if r["H"] == 256 and r["B"] == BATCH)
     conv_row = conv["shapes"]["v2_full_res_64ch_f2"]
     train_launches = train["bfloat16"]["launches"]
     kernels = [
@@ -831,8 +880,10 @@ def main() -> int:
              launches_by_path=dict(
                  train_bfloat16=train_launches["backward"],
                  train_float32=train["float32"]["launches"]["backward"]),
-             max_abs_err=max(r["max_abs_err"] for r in backward_rows),
+             max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
+             directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
+             single_direction_ms=bwd_row["single_ms"],
              plain_ms=bwd_row["plain_ms"], bound_ms=bwd_row["bound_ms"],
              bound_by=bwd_row["bound_by"], library_ms=bwd_row["library_ms"]),
         dict(name="conv3x3_superp", route="cuda",
@@ -852,7 +903,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
                        build=build, gru_forward=forward_rows,
-                       gru_backward=backward_rows, conv=conv, serve=serve,
+                       gru_backward=backward, conv=conv, serve=serve,
                        train=train, kernels=kernels), f, indent=1,
                   default=str)
     print(f"[done] phases took {seconds:.1f} s", flush=True)

@@ -103,3 +103,20 @@ def test_cuda_request_reaches_the_kernel(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensors"):
         conv_probe.KERNEL(torch.zeros(2, 16, 32, 64, dtype=torch.bfloat16),
                           torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("c", [16, 48, 128])
+def test_kernel_refuses_other_widths(c):
+    """The kernel is built for the probe's two widths, C in {32, 64}: a CUDA
+    request at any other C raises this error before anything is built (a
+    build here would fail for want of nvcc) or launched. The plain version
+    on the CPU takes any C."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    launches = conv_probe.KERNEL.launches
+    with FakeTensorMode():
+        x = torch.empty(2, 16, 32, c, device="cuda", dtype=torch.bfloat16)
+        k = torch.empty(3, 3, c, c, device="cuda")
+        with pytest.raises(ValueError, match=r"C in \(32, 64\)"):
+            conv_probe.conv3x3_superp(x, k, 2)
+    assert conv_probe.KERNEL.launches == launches

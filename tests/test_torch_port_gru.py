@@ -2,8 +2,9 @@
 the Pallas kernel (interpret mode), single-direction layers against JAX
 ``GRULayer`` on both its Pallas and scan paths, and the stacked BiGRU; then
 the gradient, the recurrence's plain backward against ``jax.vjp`` of the
-Pallas kernel's ``custom_vjp`` and whole layers' gradients against
-``jax.vjp`` of both JAX paths.
+Pallas kernel's ``custom_vjp``, whole layers' gradients against ``jax.vjp``
+of both JAX paths, and the stacked BiGRU's gradients (through the
+bidirectional autograd function) against ``jax.vjp`` of JAX ``BiGRU``.
 
 Tolerance rtol 1e-5, atol 1e-6 for outputs, rtol 1e-4, atol 1e-5 for
 gradients (the Pallas kernel's own tests, tests/test_pallas_gru.py): both
@@ -168,6 +169,44 @@ def test_layer_gradients_match_jax(hidden, reverse, use_pallas):
                                    err_msg=name, **tol)
 
 
+@pytest.mark.parametrize("hidden", [16, 256])
+def test_bigru_gradients_match_jax(hidden):
+    """Every gradient of a 2-layer BiGRU in eval mode (input and all 16
+    parameters) through the bidirectional autograd function, against
+    ``jax.vjp`` of JAX ``BiGRU(train=False)``."""
+    rng = np.random.default_rng(50 + hidden)
+    batch, in_dim, layers = 2, 24, 2
+    x = rng.normal(0, 1, (batch, LENGTH, in_dim)).astype(np.float32)
+    cot = rng.normal(0, 1, (batch, LENGTH, 2 * hidden)).astype(np.float32)
+    tree, names = {}, []
+    port = BiGRU(in_dim, hidden, num_layers=layers, dropout=0.1).eval()
+    for layer in range(layers):
+        layer_in = in_dim if layer == 0 else 2 * hidden
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            p = gru_params(rng, layer_in, hidden)
+            tree[f"l{layer}_{direction}"] = p
+            load_direction(port, f"l{layer}{suffix}", p)
+            names.append((f"l{layer}_{direction}", f"l{layer}{suffix}"))
+    jax_bigru = JaxBiGRU(hidden, num_layers=layers, dropout=0.1, train=False)
+    _, vjp = jax.vjp(lambda params, x_: jax_bigru.apply({"params": params},
+                                                       x_), tree, x)
+    ref_p, ref_x = vjp(jnp.asarray(cot))
+    xt = torch.from_numpy(x).requires_grad_()
+    port(xt).backward(torch.from_numpy(cot))
+    tol = dict(rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_x), **tol)
+    for jax_name, suffix in names:
+        for name, jname, transpose in (("weight_ih", "w_ih", True),
+                                       ("bias_ih", "b_ih", False),
+                                       ("weight_hh", "w_hh", True),
+                                       ("bias_hh", "b_hh", False)):
+            ref = np.asarray(ref_p[jax_name][jname])
+            np.testing.assert_allclose(
+                getattr(port, f"{name}_{suffix}").grad.numpy(),
+                ref.T if transpose else ref, err_msg=f"{name}_{suffix}",
+                **tol)
+
+
 def test_bigru_dropout_draws_from_the_generator():
     """Train-mode dropout between layers comes from the given generator:
     the same seed gives the same output, another seed another one, and no
@@ -246,9 +285,10 @@ def test_cuda_backward_reaches_the_kernel(monkeypatch):
 
     calls = []
 
-    def recording_kernel(x_proj, hp_outs, outs, grad, w_hh, b_hh, reverse):
-        calls.append((tuple(hp_outs.shape), tuple(outs.shape),
-                      hp_outs.device.type, reverse))
+    def recording_kernel(directions):
+        for x_proj, hp_outs, outs, grad, w_hh, b_hh, reverse in directions:
+            calls.append((tuple(hp_outs.shape), tuple(outs.shape),
+                          hp_outs.device.type, reverse))
         raise RuntimeError("recording kernel")
 
     real_kernel = gru.BACKWARD_KERNEL
@@ -273,8 +313,66 @@ def test_cuda_backward_reaches_the_kernel(monkeypatch):
             assert real_kernel.launches == launches
     with pytest.raises(ValueError, match="CUDA tensors"):
         z = torch.zeros(4, 2, 48)
-        gru.BACKWARD_KERNEL(z, z, torch.zeros(4, 2, 16), torch.zeros(4, 2, 16),
-                            torch.zeros(48, 16), torch.zeros(48), False)
+        gru.BACKWARD_KERNEL([(z, z, torch.zeros(4, 2, 16),
+                              torch.zeros(4, 2, 16), torch.zeros(48, 16),
+                              torch.zeros(48), False)])
+
+
+class _Ctx:
+    """Stands in for autograd's context object when an autograd function's
+    forward and backward are called directly (autograd itself cannot run
+    on fake CUDA tensors in a CPU-only build)."""
+
+    def save_for_backward(self, *tensors):
+        self.saved_tensors = tensors
+
+
+def test_bigru_backward_reaches_the_kernel_once_per_layer(monkeypatch):
+    """A 2-layer BiGRU on (fake) CUDA tensors: each layer's backward is one
+    backward kernel call holding both directions (forward left to right,
+    backward right to left), and the plain backward never runs. The
+    recording kernel stops each backward after its call: the dW_hh products
+    that follow cannot run on fake CUDA tensors in a CPU-only build."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from vae_gan_mark_tpu_torch.ops import rnn
+
+    def plain(*args):
+        raise AssertionError("the plain backward ran for a CUDA request")
+
+    def forward_kernel(x_proj, w_hh, b_hh, reverse):
+        return x_proj.new_empty(x_proj.shape[:2] + (w_hh.shape[1],))
+
+    calls, contexts = [], []
+
+    def recording_kernel(directions):
+        calls.append([(d[0].device.type, tuple(d[2].shape), d[6])
+                      for d in directions])
+        raise RuntimeError("recording kernel")
+
+    def traced_layer(*args):
+        ctx = _Ctx()
+        contexts.append(ctx)
+        return gru.BiGRURecurrence.forward(ctx, *args)
+
+    monkeypatch.setattr(gru, "gru_backward_plain", plain)
+    monkeypatch.setattr(gru, "KERNEL", forward_kernel)
+    monkeypatch.setattr(gru, "BACKWARD_KERNEL", recording_kernel)
+    monkeypatch.setattr(rnn, "bigru_recurrence_grad", traced_layer)
+    hidden, length, batch = 16, 6, 2
+    port = BiGRU(8, hidden, num_layers=2, dropout=0.0)
+    with FakeTensorMode(), torch.no_grad():
+        for name, param in list(port.named_parameters()):
+            setattr(port, name, torch.nn.Parameter(
+                torch.empty(param.shape, device="cuda"), requires_grad=False))
+        y = port(torch.empty(batch, length, 8, device="cuda"))
+        assert tuple(y.shape) == (batch, length, 2 * hidden)
+        g = torch.empty(length, batch, hidden, device="cuda")
+        for ctx in contexts:
+            with pytest.raises(RuntimeError, match="recording kernel"):
+                gru.BiGRURecurrence.backward(ctx, g, g)
+    assert calls == [[("cuda", (length, batch, hidden), False),
+                      ("cuda", (length, batch, hidden), True)]] * 2
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])

@@ -10,8 +10,11 @@ does not change the result, so the kernel ignores it.
 
 * A tensor on the CPU goes to ``conv3x3_plain``: ``F.conv2d`` on the
   permuted tensors, in float32 on the bf16-rounded operands.
-* A CUDA tensor goes to the kernel in ``csrc/conv3x3.cu`` (bf16 only) or
-  raises. Each launch adds one to ``KERNEL.launches``.
+* A CUDA tensor goes to the kernel in ``csrc/conv3x3.cu`` (bf16, C in
+  ``KERNEL_CHANNELS``: the probe's two widths) or raises. The kernel is a
+  tensor-core implicit GEMM (wgmma, TMA-fed halo tiles); the wrapper hands
+  it k as [dy][dx][C_out][C_in]. Each launch adds one to
+  ``KERNEL.launches``.
 
 No model calls it: the JAX package runs its probe beside the models, never
 on a path, and so does the port. ``PROBE_SHAPES`` are the probe's two
@@ -28,6 +31,7 @@ import torch.nn.functional as F
 from vae_gan_mark_tpu_torch.ops.cuda_build import INT, PTR, CudaKernel
 
 SH = 8   # the probe's strip height: H must be a multiple of it
+KERNEL_CHANNELS = (32, 64)   # the C the kernel is built for
 
 PROBE_SHAPES = {
     "v2_full_res_64ch_f2": (128, 64, 448, 64, 2),
@@ -51,10 +55,14 @@ class CudaConv3x3(CudaKernel):
             raise TypeError(f"the conv3x3 kernel takes bfloat16, got "
                             f"{x.dtype}")
         n, h, w, c = x.shape
+        if c not in KERNEL_CHANNELS:
+            raise ValueError(f"the conv3x3 kernel takes C in "
+                             f"{KERNEL_CHANNELS}, got C={c}")
         self.load()
         y = torch.empty_like(x)
+        k_nk = k.permute(0, 1, 3, 2).contiguous()   # each tap (C_out, C_in)
         with torch.cuda.device(x.device):
-            self.launch("conv3x3_forward", x.data_ptr(), k.data_ptr(),
+            self.launch("conv3x3_forward", x.data_ptr(), k_nk.data_ptr(),
                         y.data_ptr(), n, h, w, c,
                         torch.cuda.current_stream(x.device).cuda_stream,
                         what=f"N={n}, H={h}, W={w}, C={c}")

@@ -11,15 +11,20 @@ returns outputs in input order.
 ``gru_recurrence_backward(x_proj, w_hh, b_hh, outs, grad, reverse)`` is the
 port of that kernel's ``custom_vjp`` backward (``_bwd``): from the forward's
 outputs and their cotangent it returns ``(dx_proj, dW_hh, db_hh)``.
-``GRURecurrence`` joins the two as a ``torch.autograd.Function``; its saved
-tensors are what ``_fwd`` keeps (x_proj, w_hh, b_hh, outs).
+``gru_bidirectional_backward`` does the same for the two directions of a
+bidirectional layer (forward left to right, backward right to left) in one
+kernel launch. ``GRURecurrence`` (one direction) and ``BiGRURecurrence``
+(both) join forward and backward as ``torch.autograd.Function``s; their
+saved tensors are what ``_fwd`` keeps (x_proj, w_hh, b_hh, outs), per
+direction.
 
 * A tensor on the CPU goes to the plain versions, Python loops over t.
-* A CUDA tensor goes to the kernels in ``csrc/gru_fwd.cu`` and
-  ``csrc/gru_bwd.cu`` or raises. They are compiled with ``nvcc`` at first
-  use (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
+* A CUDA tensor goes to the kernels in ``csrc/gru_fwd.cu`` (one launch per
+  direction) and ``csrc/gru_bwd.cu`` (one launch for one or both
+  directions) or raises. They are compiled with ``nvcc`` at first use
+  (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
   (forward) or ``BACKWARD_KERNEL.launches`` (backward). Around the backward
-  kernel two products without a sequential dependence go to
+  kernel two products per direction without a sequential dependence go to
   ``torch.matmul``: the gate pre-activations of every step, recomputed from
   the saved outputs before it, and dW_hh after it.
 
@@ -28,7 +33,8 @@ Importing this module builds nothing.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -67,33 +73,54 @@ class CudaGRU(CudaKernel):
 
 class CudaGRUBackward(CudaKernel):
     """The backward kernel, ``csrc/gru_bwd.cu``: the sequential part of the
-    gradient, dx_proj and the W_hh-side cotangents dhp of every step."""
+    gradient, dx_proj and the W_hh-side cotangents dhp of every step, for
+    one direction or for both directions of a layer in one launch."""
 
     def __init__(self):
         super().__init__("gru_bwd.cu",
-                         {"gru_backward": [PTR] * 8 + [INT] * 4 + [PTR]},
+                         {"gru_backward": [PTR, PTR] + [INT] * 4 + [PTR],
+                          "gru_backward_max_clusters": [INT, PTR]},
                          "gru_bwd_error_string")
 
-    def __call__(self, x_proj: torch.Tensor, hp_outs: torch.Tensor,
-                 outs: torch.Tensor, grad: torch.Tensor, w_hh: torch.Tensor,
-                 b_hh: torch.Tensor, reverse: bool
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def __call__(self, directions: Sequence[Tuple]
+                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """``directions``: one or two tuples (x_proj, hp_outs, outs, grad,
+        w_hh, b_hh, reverse) of contiguous float32 CUDA tensors of one
+        shape; returns (dx_proj, dhp) per direction."""
+        x_proj = directions[0][0]
         if x_proj.device.type != "cuda":
             raise ValueError(f"the GRU backward kernel takes CUDA tensors, "
                              f"got {x_proj.device}")
         length, batch, h3 = x_proj.shape
         hidden = h3 // 3
         self.load()
-        dxp = torch.empty_like(x_proj)
-        dhp = torch.empty_like(x_proj)
+        outputs, ptrs = [], []
+        for x, hp_outs, outs, grad, w_hh, b_hh, _ in directions:
+            dxp, dhp = torch.empty_like(x), torch.empty_like(x)
+            outputs.append((dxp, dhp))
+            ptrs += [t.data_ptr() for t in (x, hp_outs, outs, grad, w_hh,
+                                            b_hh, dxp, dhp)]
+        reverse = [int(d[6]) for d in directions]
         with torch.cuda.device(x_proj.device):
-            self.launch("gru_backward", x_proj.data_ptr(), hp_outs.data_ptr(),
-                        outs.data_ptr(), grad.data_ptr(), w_hh.data_ptr(),
-                        b_hh.data_ptr(), dxp.data_ptr(), dhp.data_ptr(),
-                        length, batch,
-                        hidden, int(reverse), _stream(x_proj),
-                        what=f"L={length}, B={batch}, H={hidden}")
-        return dxp, dhp
+            self.launch("gru_backward", (ctypes.c_void_p * len(ptrs))(*ptrs),
+                        (ctypes.c_int * len(reverse))(*reverse),
+                        len(directions), length, batch, hidden,
+                        _stream(x_proj),
+                        what=f"{len(directions)} directions, L={length}, "
+                             f"B={batch}, H={hidden}")
+        return outputs
+
+    def max_active_clusters(self, hidden: int) -> int:
+        """``cudaOccupancyMaxActiveClusters`` of the kernel at ``hidden``:
+        how many 8-CTA clusters the card holds at once. A launch needs one
+        per (direction, 16-row batch tile); beyond that it runs in waves."""
+        lib = self.load()
+        count = ctypes.c_int(0)
+        err = lib.gru_backward_max_clusters(hidden, ctypes.byref(count))
+        if err != 0:
+            msg = lib.gru_bwd_error_string(err).decode()
+            raise RuntimeError(f"gru_backward_max_clusters failed: {msg}")
+        return count.value
 
 
 KERNEL = CudaGRU()
@@ -172,27 +199,63 @@ def gru_recurrence_backward(x_proj: torch.Tensor, w_hh: torch.Tensor,
         return gru_backward_plain(x_proj, w_hh, b_hh, outs, grad, reverse)
     if x_proj.device.type != "cuda":
         raise RuntimeError(f"no GRU kernel for device {x_proj.device}")
-    return _backward_cuda(x_proj, w_hh.contiguous(), b_hh.contiguous(),
-                          outs.contiguous(), grad.contiguous(), reverse)
+    return _backward_cuda([(x_proj, w_hh, b_hh, outs, grad, reverse)])[0]
 
 
-def _backward_cuda(x_proj, w_hh, b_hh, outs, grad, reverse):
-    length, batch, h3 = x_proj.shape
-    hidden = h3 // 3
-    outs_flat = outs.view(length * batch, hidden)
-    # Every step's h_prev is a saved output, so the gate pre-activations are
-    # one product ahead of the kernel; the kernel keeps only W_hh's columns.
-    hp_outs = torch.addmm(b_hh, outs_flat, w_hh.t()).view(length, batch, h3)
-    dxp, dhp = BACKWARD_KERNEL(x_proj.contiguous(), hp_outs, outs, grad,
-                               w_hh, b_hh, reverse)
-    # dW_hh = sum over steps of dhp[t]^T h_prev[t]; the first step's h_prev
-    # is zero.
-    dhp_flat = dhp.view(length * batch, h3)
-    if reverse:
-        dw = dhp_flat[:-batch].t() @ outs_flat[batch:]
-    else:
-        dw = dhp_flat[batch:].t() @ outs_flat[:-batch]
-    return dxp, dw, dhp_flat.sum(0)
+def gru_bidirectional_backward(fwd: Sequence[torch.Tensor],
+                               bwd: Sequence[torch.Tensor]
+                               ) -> Tuple[Tuple[torch.Tensor, ...],
+                                          Tuple[torch.Tensor, ...]]:
+    """``gru_recurrence_backward`` for both directions of a layer: ``fwd``
+    and ``bwd`` are each (x_proj, w_hh, b_hh, outs, grad), the first run
+    left to right, the second right to left; returns (dx_proj, dW_hh,
+    db_hh) for each. On the card, one kernel launch for both."""
+    for d in (fwd, bwd):
+        _check(*d)
+        if d[0].device != fwd[0].device or d[0].shape != fwd[0].shape:
+            raise ValueError("both directions must share device and shape, "
+                             f"got {tuple(fwd[0].shape)} on {fwd[0].device} "
+                             f"and {tuple(d[0].shape)} on {d[0].device}")
+    device = fwd[0].device
+    if device.type == "cpu":
+        return (gru_backward_plain(*fwd, False),
+                gru_backward_plain(*bwd, True))
+    if device.type != "cuda":
+        raise RuntimeError(f"no GRU kernel for device {device}")
+    return tuple(_backward_cuda([(*fwd, False), (*bwd, True)]))
+
+
+def _backward_cuda(directions):
+    """One backward launch for every direction in ``directions`` (tuples
+    x_proj, w_hh, b_hh, outs, grad, reverse), the products around it per
+    direction."""
+    prepared = []
+    for x_proj, w_hh, b_hh, outs, grad, reverse in directions:
+        length, batch, h3 = x_proj.shape
+        hidden = h3 // 3
+        w_hh, b_hh = w_hh.contiguous(), b_hh.contiguous()
+        outs, grad = outs.contiguous(), grad.contiguous()
+        # Every step's h_prev is a saved output, so the gate pre-activations
+        # are one product ahead of the kernel; the kernel keeps only W_hh's
+        # columns.
+        hp_outs = torch.addmm(b_hh, outs.view(length * batch, hidden),
+                              w_hh.t()).view(length, batch, h3)
+        prepared.append((x_proj.contiguous(), hp_outs, outs, grad, w_hh,
+                         b_hh, reverse))
+    results = []
+    for (_, _, outs, _, _, _, reverse), (dxp, dhp) in zip(
+            prepared, BACKWARD_KERNEL(prepared)):
+        length, batch, hidden = outs.shape
+        outs_flat = outs.view(length * batch, hidden)
+        # dW_hh = sum over steps of dhp[t]^T h_prev[t]; the first step's
+        # h_prev is zero.
+        dhp_flat = dhp.view(length * batch, 3 * hidden)
+        if reverse:
+            dw = dhp_flat[:-batch].t() @ outs_flat[batch:]
+        else:
+            dw = dhp_flat[batch:].t() @ outs_flat[:-batch]
+        results.append((dxp, dw, dhp_flat.sum(0)))
+    return results
 
 
 def gru_backward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -246,6 +309,37 @@ class GRURecurrence(torch.autograd.Function):
         dxp, dw, db = gru_recurrence_backward(
             x_proj, w_hh, b_hh, outs, grad.contiguous(), ctx.reverse)
         return dxp, dw, db, None
+
+
+class BiGRURecurrence(torch.autograd.Function):
+    """Both directions of a bidirectional layer with their gradient: two
+    forward kernel launches (left to right, right to left), then one
+    backward launch for the pair."""
+
+    @staticmethod
+    def forward(ctx, x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd):
+        outs_fwd = gru_recurrence(x_fwd, w_fwd, b_fwd, False)
+        outs_bwd = gru_recurrence(x_bwd, w_bwd, b_bwd, True)
+        ctx.save_for_backward(x_fwd, w_fwd, b_fwd, outs_fwd,
+                              x_bwd, w_bwd, b_bwd, outs_bwd)
+        return outs_fwd, outs_bwd
+
+    @staticmethod
+    def backward(ctx, grad_fwd, grad_bwd):
+        x_f, w_f, b_f, outs_f, x_b, w_b, b_b, outs_b = ctx.saved_tensors
+        (dx_f, dw_f, db_f), (dx_b, dw_b, db_b) = gru_bidirectional_backward(
+            (x_f, w_f, b_f, outs_f, grad_fwd.contiguous()),
+            (x_b, w_b, b_b, outs_b, grad_bwd.contiguous()))
+        return dx_f, dw_f, db_f, dx_b, dw_b, db_b
+
+
+def bigru_recurrence_grad(x_fwd: torch.Tensor, w_fwd: torch.Tensor,
+                          b_fwd: torch.Tensor, x_bwd: torch.Tensor,
+                          w_bwd: torch.Tensor, b_bwd: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both directions' ``gru_recurrence`` (the second reversed), which
+    autograd differentiates with one backward launch for the pair."""
+    return BiGRURecurrence.apply(x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd)
 
 
 def gru_recurrence_grad(x_proj: torch.Tensor, w_hh: torch.Tensor,

@@ -4,9 +4,10 @@ semantics, gate order r, z, n).
 The input projection for every step is hoisted out of the recurrence into
 one float32 product (L*B, E) @ (E, 3H), as the JAX package leaves it to XLA
 outside its Pallas call; the recurrence goes through ``ops.gru``'s autograd
-function: the Hopper kernels (forward and backward) for a CUDA tensor, their
+functions: the Hopper kernels (forward and backward) for a CUDA tensor, their
 plain versions for a CPU tensor. The reverse direction runs right to left
-and returns outputs in input order.
+and returns outputs in input order. A BiGRU layer runs both directions
+through one function, whose backward is one kernel launch for the pair.
 Parameters carry ``nn.GRU``'s names (``weight_ih_l0``, ``bias_hh_l1_reverse``
 ...), so a reference ``state_dict`` loads as it is.
 """
@@ -19,17 +20,24 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vae_gan_mark_tpu_torch.ops.gru import gru_recurrence_grad
+from vae_gan_mark_tpu_torch.ops.gru import (bigru_recurrence_grad,
+                                            gru_recurrence_grad)
+
+
+def input_projection(x_tm: torch.Tensor, w_ih: torch.Tensor,
+                     b_ih: torch.Tensor) -> torch.Tensor:
+    """Time-major (L, B, E) -> x @ W_ih^T + b_ih (L, B, 3H), float32."""
+    length, batch, in_dim = x_tm.shape
+    x_proj = torch.addmm(b_ih, x_tm.reshape(length * batch, in_dim).float(),
+                         w_ih.t())
+    return x_proj.view(length, batch, -1)
 
 
 def gru_layer(x_tm: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
               w_hh: torch.Tensor, b_hh: torch.Tensor,
               reverse: bool) -> torch.Tensor:
     """Time-major (L, B, E) -> (L, B, H) hidden states, float32."""
-    length, batch, in_dim = x_tm.shape
-    x_proj = torch.addmm(b_ih, x_tm.reshape(length * batch, in_dim).float(),
-                         w_ih.t())
-    return gru_recurrence_grad(x_proj.view(length, batch, -1), w_hh, b_hh,
+    return gru_recurrence_grad(input_projection(x_tm, w_ih, b_ih), w_hh, b_hh,
                                reverse)
 
 
@@ -80,20 +88,20 @@ class BiGRU(nn.Module):
             _gru_params(self, f"l{layer}", layer_in, hidden)
             _gru_params(self, f"l{layer}_reverse", layer_in, hidden)
 
-    def _direction(self, y: torch.Tensor, suffix: str,
-                   reverse: bool) -> torch.Tensor:
-        return gru_layer(y, getattr(self, f"weight_ih_{suffix}"),
-                         getattr(self, f"bias_ih_{suffix}"),
-                         getattr(self, f"weight_hh_{suffix}"),
-                         getattr(self, f"bias_hh_{suffix}"), reverse)
+    def _direction(self, y: torch.Tensor, suffix: str):
+        """(x_proj, W_hh, b_hh) of one direction of a layer."""
+        return (input_projection(y, getattr(self, f"weight_ih_{suffix}"),
+                                 getattr(self, f"bias_ih_{suffix}")),
+                getattr(self, f"weight_hh_{suffix}"),
+                getattr(self, f"bias_hh_{suffix}"))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = x.transpose(0, 1)                       # time-major (L, B, E)
         for layer in range(self.num_layers):
-            y = torch.cat([self._direction(y, f"l{layer}", False),
-                           self._direction(y, f"l{layer}_reverse", True)],
-                          dim=-1)
+            y = torch.cat(bigru_recurrence_grad(
+                *self._direction(y, f"l{layer}"),
+                *self._direction(y, f"l{layer}_reverse")), dim=-1)
             if layer + 1 < self.num_layers and self.dropout > 0.0 \
                     and self.training:
                 y = y * dropout_mask(y, self.dropout, generator)
