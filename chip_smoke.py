@@ -10,9 +10,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    checkout's sources, one ``nvcc`` each, all at once, and print each one's
    registers, spills and any wgmma serialisation warning;
 3. GRU forward: hold the kernel against its plain PyTorch version at L=60,
-   H in {16, 256}, B in {1, 16, 128}, both directions, float32 with TF32
-   off, and time the kernel, the plain version, one ``torch.nn.GRU`` call
-   (cuDNN) on the same inputs, and the bound;
+   H in {16, 256}, B in {1, 16, 128}, float32 with TF32 off, each
+   direction alone and both directions of a layer in one launch; print
+   ``cudaOccupancyMaxActiveClusters`` and the waves; at H=256, B=16 and
+   128, time the pair, one direction, cuDNN's bidirectional ``nn.GRU``
+   forward on the same x_proj, the plain pair and the bound; time the
+   pair at B=16 over the first 1, 15, 30 and 60 steps and fit the time per
+   step and the intercept;
 4. GRU backward: the same shapes for dx_proj, dW_hh and db_hh against the
    plain backward, each direction alone and both directions of a layer in
    one launch; print ``cudaOccupancyMaxActiveClusters``; at H=256, B=16
@@ -29,12 +33,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 6. serve the v2 generator at full width (448x64) through
    ``InferenceEngine(device="cuda")`` with seeded random weights: requests
    of 16, 5 and 33 patches and one full-image render, counting GRU kernel
-   launches; hold the float32 output against the same engine on the CPU,
-   run once in bfloat16, time img/s at batch 16 and profile one batch;
+   launches (2 per chunk: one per BiGRU layer for both directions); hold
+   the float32 output against the same engine on the CPU, run once in
+   bfloat16, time img/s at batch 16 and profile one batch;
 7. train v2 at full width with seeded weights through the weight bridge
    (BiGRU dropout 0.1 from a generator): 5 bf16 steps and 5 float32 steps
    (TF32 off) at batch 16, each run with the counts at 0 before it and read
-   after (4 forward + 2 backward GRU launches per step: one backward per
+   after (2 forward + 2 backward GRU launches per step: one of each per
    BiGRU layer for both directions), losses finite, the
    spectral u and BatchNorm running statistics moved; one float32 step at
    B=2 on the card against the CPU; bf16 img/s at batch 16 and 128; one
@@ -64,8 +69,8 @@ FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
-# GRU kernel vs plain: the product's sum order differs (per-thread k slices
-# summed across threads vs cuBLAS), a few float32 ulps per step over 60
+# GRU kernel vs plain: the product's sum order differs (per-lane k slices
+# summed by warp shuffles vs cuBLAS), a few float32 ulps per step over 60
 # steps.
 KERNEL_ATOL, KERNEL_RTOL = 1e-5, 1e-4
 # GRU backward vs plain: dW_hh and db_hh sum over L*B rows (up to 7680) in
@@ -117,6 +122,30 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time per call of ``fn``, for calls shorter than the host's
+    time to enqueue them: a sleep kernel holds the stream while the host
+    enqueues all ``iters`` calls, which then run back to back between the
+    two events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * enqueue_s * 2e9))     # cycles, ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -206,46 +235,105 @@ def phase_build(modules) -> dict:
     return dict(seconds=seconds, kernels=report)
 
 
-def phase_gru_forward(gru) -> list:
-    """Kernel vs plain vs cuDNN at the GRU shapes of the serving path."""
+def phase_gru_forward(gru) -> dict:
+    """Forward kernel vs plain at every shape: each direction alone (one
+    launch each) and both directions of a layer in one launch; timings of
+    the pair at H=256 for the batches 16 and 128; the pair's time per step
+    at B=16."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = []
+    clusters = {h: {rows: gru.KERNEL.max_active_clusters(h, rows)
+                    for rows in (16, 32)} for h in (16, 256)}
+    check(min(c for h in clusters.values() for c in h.values()) > 0,
+          f"no cluster fits: {clusters}")
+    print(f"[gru fwd] cudaOccupancyMaxActiveClusters (8 CTAs each) by "
+          f"tile rows: {clusters}", flush=True)
+    rows, per_step = [], None
     for hidden in (16, 256):
         for batch in (1, 16, 128):
-            x_proj, w_hh, b_hh = gru_inputs(gen, batch, hidden)
-            lib = cudnn_gru(w_hh, b_hh)
-            for reverse in (False, True):
-                out = gru.gru_recurrence(x_proj, w_hh, b_hh, reverse)
-                torch.cuda.synchronize()
-                ref = gru.gru_recurrence_plain(x_proj, w_hh, b_hh, reverse)
-                err = (out - ref).abs().max().item()
-                ok = torch.allclose(out, ref, atol=KERNEL_ATOL,
-                                    rtol=KERNEL_RTOL)
-                check(ok, f"kernel vs plain H={hidden} B={batch} "
-                          f"reverse={reverse}: max abs err {err}")
-                with torch.no_grad():
-                    lib_in = x_proj.flip(0) if reverse else x_proj
-                    lib_out = lib(lib_in)[0]
-                    lib_out = lib_out.flip(0) if reverse else lib_out
-                lib_err = (lib_out - ref).abs().max().item()
-                ms = cuda_time_ms(lambda: gru.gru_recurrence(
-                    x_proj, w_hh, b_hh, reverse), 50)
-                plain_ms = cuda_time_ms(lambda: gru.gru_recurrence_plain(
-                    x_proj, w_hh, b_hh, reverse), 10)
-                with torch.no_grad():
-                    library_ms = cuda_time_ms(lambda: lib(x_proj), 50)
-                bound_ms, bound_by = gru_bound(L_TEXT, batch, hidden)
-                row = dict(H=hidden, B=batch, reverse=reverse,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, library_max_abs_err=lib_err,
-                           bound_ms=bound_ms, bound_by=bound_by)
-                rows.append(row)
-                print(f"[gru fwd] L={L_TEXT} H={hidden:3d} B={batch:3d} "
-                      f"reverse={int(reverse)} err={err:.3e} "
-                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"cudnn_ms={library_ms:.4f} (cudnn err {lib_err:.2e}) "
-                      f"bound_ms={bound_ms:.5f} ({bound_by})", flush=True)
-    return rows
+            dirs = [gru_inputs(gen, batch, hidden) for _ in range(2)]
+            refs = [gru.gru_recurrence_plain(*d, rev)
+                    for d, rev in zip(dirs, (False, True))]
+            single = [gru.gru_recurrence(*d, rev)
+                      for d, rev in zip(dirs, (False, True))]
+            before = gru.KERNEL.launches
+            pair = gru.gru_bidirectional_forward(*dirs)
+            torch.cuda.synchronize()
+            pair_launches = gru.KERNEL.launches - before
+            check(pair_launches == 1,
+                  f"the bidirectional forward made {pair_launches} launches")
+            errs = {}
+            for name, got in (("single", single), ("pair", pair)):
+                for rev, out, ref in zip((False, True), got, refs):
+                    err = (out - ref).abs().max().item()
+                    check(torch.allclose(out, ref, atol=KERNEL_ATOL,
+                                         rtol=KERNEL_RTOL),
+                          f"forward kernel ({name}) vs plain H={hidden} "
+                          f"B={batch} reverse={rev}: max abs err {err}")
+                    errs[f"{name}_{'reverse' if rev else 'forward'}"] = err
+            row = dict(H=hidden, B=batch, errs=errs,
+                       max_abs_err=max(errs.values()),
+                       directions_per_launch=len(pair) / pair_launches,
+                       plan=gru.KERNEL.plan(2, batch, hidden))
+            if hidden == 256 and batch in (16, 128):
+                row.update(time_gru_forward(gru, dirs))
+            if hidden == 256 and batch == BATCH:
+                per_step = gru_forward_per_step(gru, dirs)
+            rows.append(row)
+            timing = "".join(f" {k}={row[k]:.4f}" for k in (
+                "ms", "single_ms", "plain_ms", "library_ms", "bound_ms")
+                if k in row)
+            print(f"[gru fwd] L={L_TEXT} H={hidden:3d} B={batch:3d} both "
+                  f"directions: max abs err {row['max_abs_err']:.2e}{timing}"
+                  f" tile_rows={row['plan']['tile_rows']} clusters="
+                  f"{row['plan']['clusters']} waves={row['plan']['waves']}",
+                  flush=True)
+    return dict(rows=rows, per_step=per_step, max_active_clusters=clusters)
+
+
+def time_gru_forward(gru, dirs) -> dict:
+    """The pair at one shape, both directions on the first direction's
+    x_proj as cuDNN's bidirectional ``nn.GRU`` takes them: the kernel, one
+    direction, the plain pair, cuDNN, and the pair's bound."""
+    (x_proj, w_f, b_f), (_, w_b, b_b) = dirs
+    same = ((x_proj, w_f, b_f), (x_proj, w_b, b_b))
+    length, batch, h3 = x_proj.shape
+    hidden = h3 // 3
+    ms = cuda_time_ms(lambda: gru.gru_bidirectional_forward(*same), 50)
+    single_ms = cuda_time_ms(lambda: gru.gru_recurrence(
+        x_proj, w_f, b_f, False), 50)
+    plain_ms = cuda_time_ms(lambda: [gru.gru_recurrence_plain(*d, rev)
+                                     for d, rev in zip(same, (False, True))],
+                            3)
+    lib = cudnn_gru(w_f, b_f, (w_b, b_b))
+    with torch.no_grad():
+        lib_out = lib(x_proj)[0]
+        library_ms = cuda_time_ms(lambda: lib(x_proj), 50)
+    pair = gru.gru_bidirectional_forward(*same)
+    lib_err = max((lib_out[..., :hidden] - pair[0]).abs().max().item(),
+                  (lib_out[..., hidden:] - pair[1]).abs().max().item())
+    bound_ms, bound_by = gru_bound(length, batch, hidden)
+    return dict(ms=ms, single_ms=single_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_max_abs_err=lib_err,
+                bound_ms=2 * bound_ms, bound_by=bound_by)
+
+
+def gru_forward_per_step(gru, dirs) -> dict:
+    """The pair's device time over the first L steps of the same x_proj
+    for L in {1, 15, 30, 60} (``device_time_ms``: at small L the host's
+    time per call exceeds the kernel's); the least-squares line through the
+    times gives the time per step (slope) and what a launch costs besides
+    (intercept: the launch and the load of W_hh into registers)."""
+    (x_f, w_f, b_f), (x_b, w_b, b_b) = dirs
+    lengths = (1, 15, 30, 60)
+    times = [device_time_ms(lambda: gru.gru_bidirectional_forward(
+        (x_f[:n], w_f, b_f), (x_b[:n], w_b, b_b)), 50) for n in lengths]
+    slope, intercept = np.polyfit(lengths, times, 1)
+    result = dict(lengths=lengths, ms=times, us_per_step=slope * 1e3,
+                  intercept_us=intercept * 1e3)
+    print(f"[gru fwd] pair at H=256 B={BATCH}, L={list(lengths)}: ms "
+          f"{[round(t, 4) for t in times]}; {result['us_per_step']:.3f} us "
+          f"per step + {result['intercept_us']:.2f} us", flush=True)
+    return result
 
 
 def phase_gru_backward(gru) -> dict:
@@ -470,8 +558,8 @@ def phase_serve(gru, card: str) -> dict:
         check_patches(out, n, cfg, f"generate({n})")
     check(rendered.shape == image.shape and
           bool(np.all(np.isfinite(rendered))), "render: bad output")
-    check(launches == 4 * chunks,
-          f"GRU kernel launches {launches}, expected 4 x {chunks} chunks")
+    check(launches == 2 * chunks,
+          f"GRU kernel launches {launches}, expected 2 x {chunks} chunks")
     print(f"[serve] generate 16/5/33 + render: {chunks} chunks, "
           f"{launches} GRU kernel launches", flush=True)
 
@@ -594,9 +682,9 @@ def run_train_path(gru, cfg, weights, name: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = dict(forward=gru.KERNEL.launches,
                     backward=gru.BACKWARD_KERNEL.launches)
-    check(launches == dict(forward=4 * TRAIN_STEPS,
+    check(launches == dict(forward=2 * TRAIN_STEPS,
                            backward=2 * TRAIN_STEPS),
-          f"{name} train: GRU launches {launches}, expected 4 + 2 per step "
+          f"{name} train: GRU launches {launches}, expected 2 + 2 per step "
           f"over {TRAIN_STEPS} steps")
     history = [{k: float(v) for k, v in m.items()} for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
@@ -848,14 +936,15 @@ def main() -> int:
 
     t_start = time.perf_counter()
     build = phase_build([gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL])
-    forward_rows = phase_gru_forward(gru)
+    forward = phase_gru_forward(gru)
     backward = phase_gru_backward(gru)
     conv = phase_conv(conv_probe)
     serve = phase_serve(gru, card)
     train = phase_train(gru, card)
 
-    fwd_row = next(r for r in forward_rows
-                   if r["H"] == 256 and r["B"] == BATCH and not r["reverse"])
+    fwd_row, fwd_row_128 = (next(r for r in forward["rows"]
+                                 if r["H"] == 256 and r["B"] == b)
+                            for b in (BATCH, 128))
     bwd_row = next(r for r in backward["rows"]
                    if r["H"] == 256 and r["B"] == BATCH)
     conv_row = conv["shapes"]["v2_full_res_64ch_f2"]
@@ -869,10 +958,14 @@ def main() -> int:
                  serve=serve["launches"],
                  train_bfloat16=train_launches["forward"],
                  train_float32=train["float32"]["launches"]["forward"]),
-             max_abs_err=max(r["max_abs_err"] for r in forward_rows),
-             ms=fwd_row["ms"], plain_ms=fwd_row["plain_ms"],
-             bound_ms=fwd_row["bound_ms"], bound_by=fwd_row["bound_by"],
-             library_ms=fwd_row["library_ms"]),
+             max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
+             directions_per_launch=fwd_row["directions_per_launch"],
+             ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
+             ms_b128=fwd_row_128["ms"],
+             waves_b128=fwd_row_128["plan"]["waves"],
+             us_per_step=forward["per_step"]["us_per_step"],
+             plain_ms=fwd_row["plain_ms"], bound_ms=fwd_row["bound_ms"],
+             bound_by=fwd_row["bound_by"], library_ms=fwd_row["library_ms"]),
         dict(name="gru_backward", route="cuda",
              source="vae_gan_mark_tpu_torch/csrc/gru_bwd.cu",
              replaces="vae_gan_mark_tpu/ops/pallas/gru.py:100",
@@ -902,7 +995,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
-                       build=build, gru_forward=forward_rows,
+                       build=build, gru_forward=forward,
                        gru_backward=backward, conv=conv, serve=serve,
                        train=train, kernels=kernels), f, indent=1,
                   default=str)

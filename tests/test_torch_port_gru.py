@@ -26,7 +26,7 @@ from vae_gan_mark_tpu.ops.pallas.gru import pallas_gru_layer
 from vae_gan_mark_tpu.ops.rnn import BiGRU as JaxBiGRU
 from vae_gan_mark_tpu.ops.rnn import GRULayer as JaxGRULayer
 from vae_gan_mark_tpu_torch.ops import gru
-from vae_gan_mark_tpu_torch.ops.rnn import BiGRU, GRULayer
+from vae_gan_mark_tpu_torch.ops.rnn import BiGRU, GRULayer, input_projection
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
@@ -103,6 +103,38 @@ def test_bigru_matches_jax(hidden):
         got = port(torch.from_numpy(x))
     assert got.shape == (batch, LENGTH, 2 * hidden)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("hidden", [16, 256])
+def test_bidirectional_forward_matches_jax_bigru(hidden):
+    """``gru_bidirectional_forward`` equals two ``gru_recurrence`` calls
+    (left to right, right to left), and a 2-layer BiGRU made of it and the
+    input projections of ``ops/rnn.py`` matches JAX ``BiGRU``; inputs and
+    weights as in ``test_bigru_matches_jax``."""
+    rng = np.random.default_rng(20 + hidden)
+    batch, in_dim, layers = 2, 32, 2
+    x = rng.normal(0, 1, (batch, LENGTH, in_dim)).astype(np.float32)
+    tree = {}
+    for layer in range(layers):
+        layer_in = in_dim if layer == 0 else 2 * hidden
+        for direction in ("fwd", "bwd"):
+            tree[f"l{layer}_{direction}"] = gru_params(rng, layer_in, hidden)
+    ref = JaxBiGRU(hidden, num_layers=layers, dropout=0.1,
+                   train=False).apply({"params": tree}, x)
+    y = torch.from_numpy(x).transpose(0, 1)
+    for layer in range(layers):
+        dirs = []
+        for direction in ("fwd", "bwd"):
+            p = {k: torch.from_numpy(v.T.copy())
+                 for k, v in tree[f"l{layer}_{direction}"].items()}
+            dirs.append((input_projection(y, p["w_ih"], p["b_ih"]),
+                         p["w_hh"], p["b_hh"]))
+        pair = gru.gru_bidirectional_forward(*dirs)
+        for d, reverse, got in zip(dirs, (False, True), pair):
+            assert torch.equal(got, gru.gru_recurrence(*d, reverse))
+        y = torch.cat(pair, dim=-1)
+    np.testing.assert_allclose(y.transpose(0, 1).numpy(), np.asarray(ref),
                                rtol=RTOL, atol=ATOL)
 
 
@@ -246,9 +278,10 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
 
     calls = []
 
-    def recording_kernel(x_proj, w_hh, b_hh, reverse):
-        calls.append((x_proj.device.type, w_hh.device.type,
-                      b_hh.device.type, reverse))
+    def recording_kernel(directions):
+        calls.append([(x_proj.device.type, w_hh.device.type,
+                       b_hh.device.type, reverse)
+                      for x_proj, w_hh, b_hh, reverse in directions])
         raise RuntimeError("recording kernel")
 
     real_kernel = gru.KERNEL
@@ -261,8 +294,8 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
         for reverse in (False, True):
             with pytest.raises(RuntimeError, match="recording kernel"):
                 gru.gru_recurrence(x, w, b, reverse)
-        assert calls == [("cuda", "cuda", "cuda", False),
-                         ("cuda", "cuda", "cuda", True)]
+        assert calls == [[("cuda", "cuda", "cuda", False)],
+                         [("cuda", "cuda", "cuda", True)]]
         if not torch.cuda.is_available():
             monkeypatch.setattr(gru, "KERNEL", real_kernel)
             launches = real_kernel.launches
@@ -270,8 +303,8 @@ def test_cuda_request_raises_without_a_card(monkeypatch):
                 gru.gru_recurrence(x, w, b)
             assert real_kernel.launches == launches
     with pytest.raises(ValueError, match="CUDA tensors"):
-        gru.KERNEL(torch.zeros(4, 2, 48), torch.zeros(48, 16),
-                   torch.zeros(48), False)
+        gru.KERNEL([(torch.zeros(4, 2, 48), torch.zeros(48, 16),
+                     torch.zeros(48), False)])
 
 
 def test_cuda_backward_reaches_the_kernel(monkeypatch):
@@ -340,8 +373,9 @@ def test_bigru_backward_reaches_the_kernel_once_per_layer(monkeypatch):
     def plain(*args):
         raise AssertionError("the plain backward ran for a CUDA request")
 
-    def forward_kernel(x_proj, w_hh, b_hh, reverse):
-        return x_proj.new_empty(x_proj.shape[:2] + (w_hh.shape[1],))
+    def forward_kernel(directions):
+        return [x_proj.new_empty(x_proj.shape[:2] + (w_hh.shape[1],))
+                for x_proj, w_hh, _, _ in directions]
 
     calls, contexts = [], []
 
@@ -373,6 +407,61 @@ def test_bigru_backward_reaches_the_kernel_once_per_layer(monkeypatch):
                 gru.BiGRURecurrence.backward(ctx, g, g)
     assert calls == [[("cuda", (length, batch, hidden), False),
                       ("cuda", (length, batch, hidden), True)]] * 2
+
+
+def test_bigru_forward_reaches_the_kernel_once_per_layer(monkeypatch):
+    """A 2-layer BiGRU on (fake) CUDA tensors: each layer's forward is one
+    forward kernel call holding both directions (left to right, then right
+    to left), and the plain forward never runs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from vae_gan_mark_tpu_torch.ops import rnn
+
+    def plain(*args):
+        raise AssertionError("the plain forward ran for a CUDA request")
+
+    calls = []
+
+    def recording_kernel(directions):
+        calls.append([(x.device.type, tuple(x.shape), reverse)
+                      for x, _, _, reverse in directions])
+        return [x.new_empty(x.shape[:2] + (w.shape[1],))
+                for x, w, _, _ in directions]
+
+    monkeypatch.setattr(gru, "gru_recurrence_plain", plain)
+    monkeypatch.setattr(gru, "KERNEL", recording_kernel)
+    monkeypatch.setattr(rnn, "bigru_recurrence_grad",
+                        lambda *args: gru.BiGRURecurrence.forward(_Ctx(),
+                                                                  *args))
+    hidden, length, batch = 16, 6, 2
+    port = BiGRU(8, hidden, num_layers=2, dropout=0.0)
+    with FakeTensorMode(), torch.no_grad():
+        for name, param in list(port.named_parameters()):
+            setattr(port, name, torch.nn.Parameter(
+                torch.empty(param.shape, device="cuda"), requires_grad=False))
+        y = port(torch.empty(batch, length, 8, device="cuda"))
+        assert tuple(y.shape) == (batch, length, 2 * hidden)
+        assert y.device.type == "cuda"
+    x_shape = (length, batch, 3 * hidden)
+    assert calls == [[("cuda", x_shape, False), ("cuda", x_shape, True)]] * 2
+
+
+@pytest.mark.parametrize("bad,error", [("shape", ValueError),
+                                       ("device", ValueError),
+                                       ("meta", RuntimeError)])
+def test_bidirectional_forward_refuses_bad_pairs(bad, error):
+    """The two directions must share device and shape, and a device
+    without a kernel is refused."""
+    def direction(length=4, device="cpu"):
+        return (torch.zeros(length, 2, 48, device=device),
+                torch.zeros(48, 16, device=device),
+                torch.zeros(48, device=device))
+
+    pairs = {"shape": (direction(), direction(length=5)),
+             "device": (direction(), direction(device="meta")),
+             "meta": (direction(device="meta"), direction(device="meta"))}
+    with pytest.raises(error):
+        gru.gru_bidirectional_forward(*pairs[bad])
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])

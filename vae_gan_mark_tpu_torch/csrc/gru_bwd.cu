@@ -37,10 +37,11 @@
 //   for the lane's rows) are loaded into registers right after step s's
 //   gate math, a whole exchange and product ahead of their use; none of
 //   them depends on the recurrence.
-// - Exchange: each CTA writes its dhp slice (3 gates x H/8 units x 16
-//   rows, 6 KB at H=256) into its own shared memory in the layout the
-//   receivers read; 8 threads then send it to the 8 CTAs (itself included),
-//   one bulk copy each (cp.async.bulk shared::cta -> shared::cluster),
+// - Exchange (cluster_exchange.cuh): each CTA writes its dhp slice (3
+//   gates x H/8 units x 16 rows, 6 KB at H=256) into its own shared
+//   memory in the layout the receivers read; 8 threads then send it to
+//   the 8 CTAs (itself included), one bulk copy each (cp.async.bulk
+//   shared::cta -> shared::cluster),
 //   completing on the receiver's own mbarrier. A receiver waits on that
 //   barrier only, not on the whole cluster. Buffers are double-buffered;
 //   the cluster barrier, split into arrive (after a step's product) and
@@ -63,6 +64,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cluster_exchange.cuh"
+
+using namespace cluster_exchange;
 
 namespace {
 
@@ -144,40 +149,6 @@ __device__ __forceinline__ void halve_units(float (&acc)[UT][kTile], int ks,
   }
 }
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
-  uint32_t out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out) : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // The lane's inputs of step s: for its rows e = 0, 1: x_proj r/z/n,
 // hp r/z/n, h_prev and the cotangent at [8e .. 8e + 8). Padded rows read
 // zeros.
@@ -217,8 +188,7 @@ gru_bwd_kernel(const __grid_constant__ Directions args, int L, int B) {
   using S = Shape<H>;
   constexpr int U = S::U;
   const Direction& d = args.dir[blockIdx.y];
-  unsigned rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
+  const int rank = cluster_rank();
   const int b_tile = (blockIdx.x / kCluster) * kTile;
   const int unit0 = rank * U;
   const int tid = threadIdx.x;
@@ -234,11 +204,9 @@ gru_bwd_kernel(const __grid_constant__ Directions args, int L, int B) {
   __shared__ __align__(8) uint64_t full_bar[2];
 
   if (tid == 0) {
-    for (int b = 0; b < 2; ++b) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                       smem_u32(&full_bar[b])) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init(&full_bar[0]);
+    mbar_init(&full_bar[1]);
+    fence_mbar_init();
   }
 
   // Exchange row j = (rank' * 3 + g) * U + u' holds dhp of W_hh row
@@ -315,22 +283,15 @@ gru_bwd_kernel(const __grid_constant__ Directions args, int L, int B) {
           make_float2(out[g][0], out[g][1]);
     }
     // The slice's generic writes are visible to the bulk copies' reads.
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    fence_proxy_async();
     __syncthreads();
 
     float* rb = buf + bsel * S::J * kTile;
     const uint32_t bar = smem_u32(&full_bar[bsel]);
-    if (tid == 0) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                       "r"(bar), "r"(kCluster * slice_bytes) : "memory");
-    }
+    if (tid == 0) mbar_expect_tx(bar, kCluster * slice_bytes);
     if (tid < kCluster) {                     // thread k sends to CTA k
-      asm volatile(
-          "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx"
-          "::bytes [%0], [%1], %2, [%3];" ::"r"(cluster_addr(
-              smem_u32(rb + rank * S::kSlice), tid)),
-          "r"(smem_u32(st)), "r"(slice_bytes), "r"(cluster_addr(bar, tid))
-          : "memory");
+      send_to_peer(smem_u32(rb + rank * S::kSlice), smem_u32(st),
+                   slice_bytes, bar, tid);
     }
     mbar_wait(bar, (s >> 1) & 1);
     __syncwarp(S::kMask);

@@ -7,12 +7,14 @@ code to its message.
 
 * ``build_all(sources)`` compiles every source that has no build yet with
   ``nvcc`` for ``sm_90a`` into ``_build/`` (git-ignored), one ``nvcc`` per
-  source, all started at once. A build is named by a hash of its source, so
-  an edited source is rebuilt. ``-Xptxas -v`` makes the compiler's output
+  source, all started at once. A build is named by a hash of its source and
+  of the headers beside it (``csrc/*.cuh``), so an edited source or header
+  is rebuilt. ``-Xptxas -v`` makes the compiler's output
   carry each kernel's registers, shared memory and spills.
 * ``CudaKernel`` loads one build with ``ctypes`` at first use, declares its
   functions' signatures, launches them, raises when a launch fails and
-  counts the launches that succeeded.
+  counts the launches that succeeded; ``query`` calls a function that
+  launches nothing and returns an int through its last argument.
 
 Importing this module builds nothing.
 """
@@ -49,8 +51,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """The build of ``source``, named by a hash of it and of every header
+    beside it (``*.cuh``), so that an edited header is rebuilt too."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Iterable[Path]) -> Dict[Path, Tuple[Path, str]]:
@@ -126,6 +132,20 @@ class CudaKernel:
         lib = self.load()
         err = getattr(lib, name)(*args)
         if err != 0:
-            msg = getattr(lib, self.error_function)(err).decode()
-            raise RuntimeError(f"{name} launch failed: {msg} ({what})")
+            raise RuntimeError(f"{name} launch failed: {self._message(err)} "
+                               f"({what})")
         self.launches += 1
+
+    def query(self, name: str, *args) -> int:
+        """Call the C function ``name`` with ``args`` and a pointer to an
+        int as its last argument; raise if it reports an error, else return
+        the int. Counts no launch."""
+        lib = self.load()
+        value = ctypes.c_int(0)
+        err = getattr(lib, name)(*args, ctypes.byref(value))
+        if err != 0:
+            raise RuntimeError(f"{name} failed: {self._message(err)}")
+        return value.value
+
+    def _message(self, err: int) -> str:
+        return getattr(self.load(), self.error_function)(err).decode()

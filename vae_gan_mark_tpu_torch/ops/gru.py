@@ -11,17 +11,17 @@ returns outputs in input order.
 ``gru_recurrence_backward(x_proj, w_hh, b_hh, outs, grad, reverse)`` is the
 port of that kernel's ``custom_vjp`` backward (``_bwd``): from the forward's
 outputs and their cotangent it returns ``(dx_proj, dW_hh, db_hh)``.
-``gru_bidirectional_backward`` does the same for the two directions of a
-bidirectional layer (forward left to right, backward right to left) in one
-kernel launch. ``GRURecurrence`` (one direction) and ``BiGRURecurrence``
-(both) join forward and backward as ``torch.autograd.Function``s; their
-saved tensors are what ``_fwd`` keeps (x_proj, w_hh, b_hh, outs), per
-direction.
+``gru_bidirectional_forward`` and ``gru_bidirectional_backward`` do the same
+for the two directions of a bidirectional layer (forward left to right,
+backward right to left), each in one kernel launch. ``GRURecurrence`` (one
+direction) and ``BiGRURecurrence`` (both) join forward and backward as
+``torch.autograd.Function``s; their saved tensors are what ``_fwd`` keeps
+(x_proj, w_hh, b_hh, outs), per direction.
 
 * A tensor on the CPU goes to the plain versions, Python loops over t.
-* A CUDA tensor goes to the kernels in ``csrc/gru_fwd.cu`` (one launch per
-  direction) and ``csrc/gru_bwd.cu`` (one launch for one or both
-  directions) or raises. They are compiled with ``nvcc`` at first use
+* A CUDA tensor goes to the kernels in ``csrc/gru_fwd.cu`` and
+  ``csrc/gru_bwd.cu`` (each one launch for one or both directions) or
+  raises. They are compiled with ``nvcc`` at first use
   (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
   (forward) or ``BACKWARD_KERNEL.launches`` (backward). Around the backward
   kernel two products per direction without a sequential dependence go to
@@ -46,29 +46,58 @@ def _stream(t: torch.Tensor) -> int:
 
 
 class CudaGRU(CudaKernel):
-    """The forward kernel, ``csrc/gru_fwd.cu``."""
+    """The forward kernel, ``csrc/gru_fwd.cu``: the recurrence for one
+    direction or for both directions of a layer in one launch."""
 
     def __init__(self):
         super().__init__("gru_fwd.cu",
-                         {"gru_forward": [PTR] * 4 + [INT] * 4 + [PTR]},
+                         {"gru_forward": [PTR, PTR] + [INT] * 4 + [PTR],
+                          "gru_forward_tile_rows": [INT] * 3 + [PTR],
+                          "gru_forward_max_clusters": [INT, INT, PTR]},
                          "gru_error_string")
 
-    def __call__(self, x_proj: torch.Tensor, w_hh: torch.Tensor,
-                 b_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
+    def __call__(self, directions: Sequence[Tuple]) -> List[torch.Tensor]:
+        """``directions``: one or two tuples (x_proj, w_hh, b_hh, reverse)
+        of contiguous float32 CUDA tensors of one shape; returns the hidden
+        states (L, B, H) per direction."""
+        x_proj = directions[0][0]
         if x_proj.device.type != "cuda":
             raise ValueError(f"the GRU kernel takes CUDA tensors, got "
                              f"{x_proj.device}")
         length, batch, h3 = x_proj.shape
         hidden = h3 // 3
         self.load()
-        out = torch.empty((length, batch, hidden), dtype=torch.float32,
-                          device=x_proj.device)
+        outs, ptrs = [], []
+        for x, w_hh, b_hh, _ in directions:
+            out = torch.empty((length, batch, hidden), dtype=torch.float32,
+                              device=x.device)
+            outs.append(out)
+            ptrs += [t.data_ptr() for t in (x, w_hh, b_hh, out)]
+        reverse = [int(d[3]) for d in directions]
         with torch.cuda.device(x_proj.device):
-            self.launch("gru_forward", x_proj.data_ptr(), w_hh.data_ptr(),
-                        b_hh.data_ptr(), out.data_ptr(), length, batch,
-                        hidden, int(reverse), _stream(x_proj),
-                        what=f"L={length}, B={batch}, H={hidden}")
-        return out
+            self.launch("gru_forward", (ctypes.c_void_p * len(ptrs))(*ptrs),
+                        (ctypes.c_int * len(reverse))(*reverse),
+                        len(directions), length, batch, hidden,
+                        _stream(x_proj),
+                        what=f"{len(directions)} directions, L={length}, "
+                             f"B={batch}, H={hidden}")
+        return outs
+
+    def max_active_clusters(self, hidden: int, tile_rows: int) -> int:
+        """``cudaOccupancyMaxActiveClusters`` of the kernel at ``hidden``
+        with ``tile_rows`` (16 or 32) batch rows per cluster."""
+        return self.query("gru_forward_max_clusters", hidden, tile_rows)
+
+    def plan(self, directions: int, batch: int, hidden: int) -> dict:
+        """How a launch of ``directions`` directions at ``batch`` runs: the
+        batch rows per 8-CTA cluster (32 where 16-row tiles would need more
+        clusters than the card holds at once), the clusters it needs, how
+        many the card holds, and so the waves."""
+        rows = self.query("gru_forward_tile_rows", directions, batch, hidden)
+        clusters = directions * -(-batch // rows)
+        fit = self.max_active_clusters(hidden, rows)
+        return dict(tile_rows=rows, clusters=clusters,
+                    max_active_clusters=fit, waves=-(-clusters // fit))
 
 
 class CudaGRUBackward(CudaKernel):
@@ -114,13 +143,7 @@ class CudaGRUBackward(CudaKernel):
         """``cudaOccupancyMaxActiveClusters`` of the kernel at ``hidden``:
         how many 8-CTA clusters the card holds at once. A launch needs one
         per (direction, 16-row batch tile); beyond that it runs in waves."""
-        lib = self.load()
-        count = ctypes.c_int(0)
-        err = lib.gru_backward_max_clusters(hidden, ctypes.byref(count))
-        if err != 0:
-            msg = lib.gru_bwd_error_string(err).decode()
-            raise RuntimeError(f"gru_backward_max_clusters failed: {msg}")
-        return count.value
+        return self.query("gru_backward_max_clusters", hidden)
 
 
 KERNEL = CudaGRU()
@@ -150,6 +173,19 @@ def _check(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
                              f"{x_proj.device}")
 
 
+def _check_pair(fwd: Sequence[torch.Tensor],
+                bwd: Sequence[torch.Tensor]) -> torch.device:
+    """Both directions of a layer are valid and share device and shape;
+    returns the device."""
+    for d in (fwd, bwd):
+        _check(*d)
+        if d[0].device != fwd[0].device or d[0].shape != fwd[0].shape:
+            raise ValueError("both directions must share device and shape, "
+                             f"got {tuple(fwd[0].shape)} on {fwd[0].device} "
+                             f"and {tuple(d[0].shape)} on {d[0].device}")
+    return fwd[0].device
+
+
 def gru_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor,
                    b_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """(L, B, 3H) input projections -> (L, B, H) hidden states, float32.
@@ -161,8 +197,25 @@ def gru_recurrence(x_proj: torch.Tensor, w_hh: torch.Tensor,
         return gru_recurrence_plain(x_proj, w_hh, b_hh, reverse)
     if x_proj.device.type != "cuda":
         raise RuntimeError(f"no GRU kernel for device {x_proj.device}")
-    return KERNEL(x_proj.contiguous(), w_hh.contiguous(), b_hh.contiguous(),
-                  reverse)
+    return KERNEL([(x_proj.contiguous(), w_hh.contiguous(),
+                    b_hh.contiguous(), reverse)])[0]
+
+
+def gru_bidirectional_forward(fwd: Sequence[torch.Tensor],
+                              bwd: Sequence[torch.Tensor]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``gru_recurrence`` for both directions of a layer: ``fwd`` and
+    ``bwd`` are each (x_proj, w_hh, b_hh), the first run left to right, the
+    second right to left; returns the hidden states of each. On the card,
+    one kernel launch for both."""
+    device = _check_pair(fwd, bwd)
+    if device.type == "cpu":
+        return (gru_recurrence_plain(*fwd, False),
+                gru_recurrence_plain(*bwd, True))
+    if device.type != "cuda":
+        raise RuntimeError(f"no GRU kernel for device {device}")
+    return tuple(KERNEL([(*(t.contiguous() for t in d), reverse)
+                         for d, reverse in ((fwd, False), (bwd, True))]))
 
 
 def gru_recurrence_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -210,13 +263,7 @@ def gru_bidirectional_backward(fwd: Sequence[torch.Tensor],
     and ``bwd`` are each (x_proj, w_hh, b_hh, outs, grad), the first run
     left to right, the second right to left; returns (dx_proj, dW_hh,
     db_hh) for each. On the card, one kernel launch for both."""
-    for d in (fwd, bwd):
-        _check(*d)
-        if d[0].device != fwd[0].device or d[0].shape != fwd[0].shape:
-            raise ValueError("both directions must share device and shape, "
-                             f"got {tuple(fwd[0].shape)} on {fwd[0].device} "
-                             f"and {tuple(d[0].shape)} on {d[0].device}")
-    device = fwd[0].device
+    device = _check_pair(fwd, bwd)
     if device.type == "cpu":
         return (gru_backward_plain(*fwd, False),
                 gru_backward_plain(*bwd, True))
@@ -312,14 +359,14 @@ class GRURecurrence(torch.autograd.Function):
 
 
 class BiGRURecurrence(torch.autograd.Function):
-    """Both directions of a bidirectional layer with their gradient: two
-    forward kernel launches (left to right, right to left), then one
-    backward launch for the pair."""
+    """Both directions of a bidirectional layer with their gradient: one
+    forward kernel launch for the pair (left to right, right to left), then
+    one backward launch for the pair."""
 
     @staticmethod
     def forward(ctx, x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd):
-        outs_fwd = gru_recurrence(x_fwd, w_fwd, b_fwd, False)
-        outs_bwd = gru_recurrence(x_bwd, w_bwd, b_bwd, True)
+        outs_fwd, outs_bwd = gru_bidirectional_forward(
+            (x_fwd, w_fwd, b_fwd), (x_bwd, w_bwd, b_bwd))
         ctx.save_for_backward(x_fwd, w_fwd, b_fwd, outs_fwd,
                               x_bwd, w_bwd, b_bwd, outs_bwd)
         return outs_fwd, outs_bwd
@@ -337,7 +384,7 @@ def bigru_recurrence_grad(x_fwd: torch.Tensor, w_fwd: torch.Tensor,
                           b_fwd: torch.Tensor, x_bwd: torch.Tensor,
                           w_bwd: torch.Tensor, b_bwd: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both directions' ``gru_recurrence`` (the second reversed), which
+    """``gru_bidirectional_forward`` (the second direction reversed), which
     autograd differentiates with one backward launch for the pair."""
     return BiGRURecurrence.apply(x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd)
 

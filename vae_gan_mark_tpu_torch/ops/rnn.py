@@ -7,7 +7,8 @@ outside its Pallas call; the recurrence goes through ``ops.gru``'s autograd
 functions: the Hopper kernels (forward and backward) for a CUDA tensor, their
 plain versions for a CPU tensor. The reverse direction runs right to left
 and returns outputs in input order. A BiGRU layer runs both directions
-through one function, whose backward is one kernel launch for the pair.
+through one function, whose forward and backward are each one kernel launch
+for the pair.
 Parameters carry ``nn.GRU``'s names (``weight_ih_l0``, ``bias_hh_l1_reverse``
 ...), so a reference ``state_dict`` loads as it is.
 """
