@@ -44,7 +44,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    spectral u and BatchNorm running statistics moved; one float32 step at
    B=2 on the card against the CPU; bf16 img/s at batch 16 and 128; one
    profiled step per precision by kernel class; one eval step;
-8. print the kernels' JSON line and, last, the device line.
+8. train through the epoch driver: print whether Pillow and cv2 import; v2
+   at full width, bf16, batch 16, ``Trainer.fit`` over device-resident
+   synthetic data (256 train samples, 32 val; plateau patience 0): one
+   step run twice from one state, with cuDNN's default and its deterministic
+   algorithms, tells whether the step is deterministic; with the
+   deterministic ones, run A for 2 epochs, a new Trainer on its workdir
+   restores A's state bit for bit and trains a third, and A must equal run
+   B, 3 epochs uninterrupted (bit for bit, or within a limit set by the
+   probe); B resumed for a fourth epoch with the default algorithms; the GRU
+   launches of every ``fit`` (2 + 2 per train step, 2 forward per val
+   batch), the record schema and both checkpoints;
+   ``InferenceEngine.from_checkpoint`` against B's generator at its
+   ``best_model`` save, bit for bit (2 GRU launches a chunk), and one full
+   image; the train CLI for 1 epoch, again for 2 (it resumes), and the eval
+   CLI; img/s per epoch and the epoch driver's cost per step, against
+   phase 7 and against the epoch's steps run without the epoch driver just
+   before and after it;
+9. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -852,6 +869,432 @@ def phase_train(gru, card: str) -> dict:
     return result
 
 
+DRIVER_TRAIN_SAMPLES, DRIVER_VAL_SAMPLES = 256, 32   # 16 steps, 2 val batches
+# The record keys of a full-loss config (vae_gan_mark_tpu_torch/train/loop.py,
+# the JAX package's schema), besides the logger's own "step" and "time".
+RECORD_KEYS = {
+    "epoch", "train/generator_loss", "train/discriminator_loss",
+    "train/recon_loss", "train/kl_loss", "train/gan_loss_g",
+    "train/perceptual_loss", "train/images_per_sec",
+    "train_params/current_kl_weight", "learning_rate/generator",
+    "learning_rate/discriminator", "val/recon_loss", "val/psnr",
+    "val/masked_l1", "val/mark_recovery", "val/generator_loss",
+    "val/discriminator_loss", "val/kl_loss", "val/kl_loss_raw",
+    "val/kl_loss_weighted", "val/gan_loss_g", "val/perceptual_loss"}
+UNTIMED = ("step", "time", "train/images_per_sec")
+# Run A (2 epochs, then resumed for a third) against run B (3 epochs), both
+# with cudnn.deterministic: equal bit for bit when one bf16 step run twice
+# from one state in that mode gives the same state. Otherwise the largest
+# difference d1 of that probe sets the limits: parameters within
+# DRIVER_PARAM_FACTOR * d1 per step run (48), and each value of the epoch-3
+# record within DRIVER_RECORD_RTOL.
+DRIVER_PARAM_FACTOR = 4.0
+DRIVER_RECORD_RTOL = 1e-2
+# Scratch workdirs of the phase, git-ignored and removed at its end: a
+# full-width checkpoint is about 0.95 GB, too large for OUT_DIR.
+RUNS_DIR = os.path.join(ROOT, "chip_smoke_runs")
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state: G's and D's parameters and buffers
+    (BatchNorm statistics, spectral u) and both Adams' moments and steps."""
+    out = {f"G.{k}": v for k, v in state.generator.state_dict().items()}
+    out.update({f"D.{k}": v
+                for k, v in state.discriminator.state_dict().items()})
+    for name, opt in (("opt_g", state.opt_g), ("opt_d", state.opt_d)):
+        for i, entry in enumerate(opt.state.values()):
+            out.update({f"{name}.{i}.{k}": v for k, v in entry.items()})
+    return out
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in b)
+
+
+def read_records(workdir: str) -> list:
+    with open(os.path.join(workdir, "v2.metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_cli(module: str, *args: str) -> str:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"python -m {module} {' '.join(args)} exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    print(f"[trainer] python -m {module} {' '.join(args)}: exit 0 in "
+          f"{seconds:.1f} s", flush=True)
+    return proc.stdout
+
+
+def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
+    """v2 at full width, bf16, batch 16, through ``Trainer.fit`` over
+    device-resident synthetic data: run A (2 epochs), its resume (restored
+    state against A's, bit for bit; then a third epoch), run B (3 epochs
+    uninterrupted), A against B, the GRU launches of every fit, the record
+    schema, ``from_checkpoint`` against B's generator at its best save, and
+    the train and eval CLIs."""
+    import copy
+    import importlib
+    import shutil
+
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.data.device_synthetic import (
+        DeviceResidentSynthetic)
+    from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from vae_gan_mark_tpu_torch.serve import InferenceEngine
+    from vae_gan_mark_tpu_torch.train.loop import Trainer, make_generator
+    from vae_gan_mark_tpu_torch.train.schedule import kl_weight_for_epoch
+
+    have = {}
+    for module in ("PIL", "cv2"):
+        try:
+            importlib.import_module(module)
+            have[module] = True
+        except ImportError:
+            have[module] = False
+    print(f"[trainer] Pillow importable: {have['PIL']}; cv2 importable: "
+          f"{have['cv2']}", flush=True)
+    if not have["PIL"]:
+        print("[trainer] no Pillow: the synthetic datasets are built with "
+              "text_dependent=False (no glyphs drawn)", flush=True)
+        print("[trainer] no Pillow: serving runs through engine.render on "
+              "numpy arrays in this process (it does so in any case)",
+              flush=True)
+
+    cfg = get_config("v2", compute_dtype="bfloat16", batch_size=BATCH,
+                     **{"scheduler.patience": 0})
+    steps = DRIVER_TRAIN_SAMPLES // BATCH
+    val_batches = DRIVER_VAL_SAMPLES // BATCH
+    t0 = time.perf_counter()
+    train_ds = SyntheticPatchDataset(cfg, DRIVER_TRAIN_SAMPLES, seed=0,
+                                     text_dependent=have["PIL"])
+    val_ds = SyntheticPatchDataset(cfg, DRIVER_VAL_SAMPLES, seed=1,
+                                   text_dependent=have["PIL"])
+    train_data = DeviceResidentSynthetic(train_ds, BATCH, steps)
+    val_data = DeviceResidentSynthetic(val_ds, BATCH, val_batches,
+                                       advance_per_epoch=False)
+    print(f"[trainer] datasets: {train_data.nbytes() / 1e6:.0f} MB train + "
+          f"{val_data.nbytes() / 1e6:.0f} MB val on the card, built in "
+          f"{time.perf_counter() - t0:.1f} s; {steps} steps and "
+          f"{val_batches} val batches an epoch", flush=True)
+
+    class TimedTrainer(Trainer):
+        """Times each epoch's parts and keeps G as it was at each
+        ``best_model`` save."""
+
+        def __init__(self, *args, **kwargs):
+            self.timings, self.best_generator = {}, None
+            super().__init__(*args, **kwargs)
+
+        def _timed(self, epoch, part, fn, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            row = self.timings.setdefault(epoch + 1, {})
+            row[part] = row.get(part, 0.0) + time.perf_counter() - t
+            return out
+
+        def train_epoch(self, epoch):
+            return self._timed(epoch, "train_s", super().train_epoch, epoch)
+
+        def validate(self, epoch):
+            return self._timed(epoch, "val_s", super().validate, epoch)
+
+        def _save(self, name, epoch):
+            if name == "best_model":
+                self.best_generator = {
+                    k: v.detach().clone()
+                    for k, v in self.state.generator.state_dict().items()}
+            return self._timed(epoch, "save_s", super()._save, name, epoch)
+
+    def fit(trainer, epochs: int, what: str) -> dict:
+        runs = epochs - trainer.epoch
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        t = time.perf_counter()
+        trainer.fit(epochs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(forward=gru.KERNEL.launches,
+                        backward=gru.BACKWARD_KERNEL.launches)
+        expected = dict(forward=runs * (2 * steps + 2 * val_batches),
+                        backward=runs * 2 * steps)
+        check(launches == expected,
+              f"{what}: GRU launches {launches}, expected {expected} (2 + 2 "
+              f"per train step, 2 forward per val batch)")
+        records = read_records(trainer.workdir)[-runs:]
+        for rec in records:
+            ep = int(rec["epoch"])
+            tm = trainer.timings[ep]
+            wall = sum(tm.values())
+            print(f"[trainer] {what} epoch {ep}: "
+                  f"train/images_per_sec {rec['train/images_per_sec']:.1f}, "
+                  f"wall {wall:.2f} s (train {tm['train_s']:.2f}, val "
+                  f"{tm['val_s']:.2f}, saves {tm.get('save_s', 0.0):.2f}); "
+                  + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
+                             if k.startswith("val/")), flush=True)
+        print(f"[trainer] {what}: fit({epochs}) in {seconds:.1f} s, GRU "
+              f"launches {launches}", flush=True)
+        return dict(seconds=seconds, launches=launches, records=records,
+                    timings=trainer.timings)
+
+    def step_twice(trainer, batch, kl_w: float) -> float:
+        """The largest difference in G and D after one train step run twice
+        from the trainer's state."""
+        after = []
+        for _ in range(2):
+            probe = copy.deepcopy(trainer.state)
+            trainer.train_step(probe, trainer.vgg, batch, make_generator(
+                trainer.device, trainer.seed, probe.step), kl_w)
+            after.append({k: v.detach().clone() for k, v in
+                          state_tensors(probe).items()
+                          if not k.startswith("opt_")})
+            del probe
+        diff = max_abs_diff(*after)
+        del after
+        torch.cuda.empty_cache()
+        return diff
+
+    def bare_step_ms(trainer, epoch: int) -> float:
+        """ms a step of the epoch's train steps on a copy of the trainer's
+        state, without the epoch driver: the batches gathered first, one
+        synchronize at the end, no prefetch thread and no metric sums."""
+        state = copy.deepcopy(trainer.state)
+        batches = list(train_data(epoch))
+        kl_w = float(np.float32(kl_weight_for_epoch(cfg, epoch)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(state, trainer.vgg, batch, make_generator(
+                trainer.device, trainer.seed, state.step), kl_w)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        del state, batches
+        torch.cuda.empty_cache()
+        return seconds / steps * 1e3
+
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    wd_a, wd_b = (os.path.join(RUNS_DIR, n) for n in ("run_a", "run_b"))
+    result = dict(have=have)
+    try:
+        run_a = TimedTrainer(cfg, train_data, val_data, wd_a, seed=0)
+        # Is the bf16 step deterministic? One step twice from A's init,
+        # with cuDNN's default algorithms and with its deterministic ones.
+        batch = run_a._put(next(iter(train_data(0))))
+        kl_w = float(np.float32(kl_weight_for_epoch(cfg, 0)))
+        d1 = {}
+        for mode in ("default", "deterministic"):
+            torch.backends.cudnn.deterministic = mode == "deterministic"
+            d1[mode] = step_twice(run_a, batch, kl_w)
+        del batch
+        print(f"[trainer] one bf16 train step run twice from one state: "
+              f"largest difference in G and D {d1['default']:.3e} with "
+              f"cuDNN's default algorithms, {d1['deterministic']:.3e} with "
+              f"cudnn.deterministic, which runs A and B use", flush=True)
+        result["step_twice_max_abs_diff"] = d1
+
+        # Run A, then a new Trainer on its workdir.
+        result["run_a"] = fit(run_a, 2, "run A")
+        a_end = {k: v.detach().clone()
+                 for k, v in state_tensors(run_a.state).items()}
+        a_host = dict(epoch=1, best_val=run_a.best_val,
+                      sched_g=copy.copy(run_a.sched_g),
+                      sched_d=copy.copy(run_a.sched_d),
+                      lr_g=run_a.state.opt_g.param_groups[0]["lr"],
+                      lr_d=run_a.state.opt_d.param_groups[0]["lr"],
+                      step=run_a.state.step)
+        del run_a
+        torch.cuda.empty_cache()
+
+        resumed = TimedTrainer(cfg, train_data, val_data, wd_a, seed=0)
+        got = state_tensors(resumed.state)
+        check(set(got) == set(a_end), "resume: the restored state has other "
+                                      "tensors than run A's")
+        differ = [k for k in a_end if not torch.equal(got[k], a_end[k])]
+        got_host = dict(epoch=resumed.epoch - 1, best_val=resumed.best_val,
+                        sched_g=resumed.sched_g, sched_d=resumed.sched_d,
+                        lr_g=resumed.state.opt_g.param_groups[0]["lr"],
+                        lr_d=resumed.state.opt_d.param_groups[0]["lr"],
+                        step=resumed.state.step)
+        check(not differ and got_host == a_host,
+              f"resume: restored state differs from run A's end: tensors "
+              f"{differ[:5]}, host {got_host} vs {a_host}")
+        print(f"[trainer] resume: {len(a_end)} tensors (G, D, BN statistics, "
+              f"u, both Adams) and {sorted(a_host)} equal run A's end, bit "
+              f"for bit", flush=True)
+        del a_end
+
+        result["resumed"] = fit(resumed, 3, "run A resumed")
+        a_final = {k: v.detach().clone() for k, v in
+                   state_tensors(resumed.state).items()
+                   if not k.startswith("opt_")}
+        del resumed
+        torch.cuda.empty_cache()
+
+        run_b = TimedTrainer(cfg, train_data, val_data, wd_b, seed=0)
+        result["run_b"] = fit(run_b, 3, "run B")
+        b_final = {k: v for k, v in state_tensors(run_b.state).items()
+                   if not k.startswith("opt_")}
+        rec_b3 = read_records(wd_b)[-1]
+
+        # A against B.
+        param_diff = max_abs_diff(a_final, b_final)
+        rec_a3 = read_records(wd_a)[-1]
+        check(set(rec_a3) == set(rec_b3), "A and B records differ in keys")
+        rec_rel = max(abs(rec_a3[k] - rec_b3[k]) / max(abs(rec_b3[k]), 1e-12)
+                      for k in rec_b3 if k not in UNTIMED)
+        if d1["deterministic"] == 0:
+            limits = dict(params=0.0, record_rtol=0.0)
+        else:
+            limits = dict(params=DRIVER_PARAM_FACTOR * d1["deterministic"]
+                          * 3 * steps, record_rtol=DRIVER_RECORD_RTOL)
+        print(f"[trainer] A (2 epochs + resume) against B (3 epochs): "
+              f"parameters and buffers differ by {param_diff:.3e} (limit "
+              f"{limits['params']:.3e}), the epoch-3 records by "
+              f"{rec_rel:.3e} relative (limit {limits['record_rtol']:.1e})",
+              flush=True)
+        check(param_diff <= limits["params"]
+              and rec_rel <= limits["record_rtol"],
+              f"A against B: params {param_diff} records {rec_rel}, limits "
+              f"{limits}")
+        result["a_vs_b"] = dict(param_max_abs_diff=param_diff,
+                                record_max_rel_diff=rec_rel, limits=limits)
+        del a_final, b_final
+
+        # The schema and the checkpoints.
+        for rec in read_records(wd_b):
+            check(set(rec) - {"step", "time"} == RECORD_KEYS,
+                  f"record keys {sorted(set(rec) ^ RECORD_KEYS)}")
+        for name in ("last_checkpoint", "best_model"):
+            check(os.path.isfile(os.path.join(wd_b, name, "state.pt")),
+                  f"run B has no {name}")
+        with open(os.path.join(wd_b, "best_model", "host_meta.json")) as f:
+            best_epoch = json.load(f)["epoch"]
+        print(f"[trainer] run B's records have the {len(RECORD_KEYS)} keys of "
+              f"the schema; last_checkpoint/ and best_model/ (epoch "
+              f"{best_epoch + 1}) exist", flush=True)
+
+        # Serving from B's best checkpoint.
+        engine = InferenceEngine.from_checkpoint(cfg, wd_b, "best_model",
+                                                 batch_size=BATCH, seed=0)
+        reference = InferenceEngine(cfg, run_b.best_generator,
+                                    batch_size=BATCH, seed=0)
+        requests = make_requests(cfg, BATCH, seed=21)
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = 0
+        patches = engine.generate(*requests)
+        torch.cuda.synchronize()
+        serve_launches = gru.KERNEL.launches
+        check(serve_launches == 2, f"from_checkpoint generate(16): "
+                                   f"{serve_launches} GRU launches, expected 2")
+        check_patches(patches, BATCH, cfg, "from_checkpoint generate(16)")
+        same = np.array_equal(patches, reference.generate(*requests))
+        check(same, "from_checkpoint patches differ from the generator B "
+                    "held at its best_model save")
+        img_rng = np.random.default_rng(8)
+        image = img_rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        quad = np.array([[100, 120], [500, 140], [495, 230], [95, 210]],
+                        np.float32)
+        rendered = engine.render(image, np.zeros((480, 640), np.uint8), quad,
+                                 "FROM CHECKPOINT")
+        check(rendered.shape == image.shape
+              and bool(np.all(np.isfinite(rendered))), "render: bad output")
+        print(f"[trainer] from_checkpoint(best_model) generate(16): equal to "
+              f"the in-memory generator bit for bit, {serve_launches} GRU "
+              f"launches; one full image rendered", flush=True)
+        result["serve"] = dict(launches=serve_launches, equal=same)
+        det_train_s = run_b.timings[3]["train_s"]
+        del engine, reference, run_b
+        torch.cuda.empty_cache()
+
+        # B resumed for a fourth epoch with cuDNN's default algorithms, as
+        # the CLI trains: the Trainer's rate against phase 7's bare step,
+        # and against the same epoch's steps without the epoch driver (its
+        # batches gathered first, no prefetch thread, no metric sums) on a
+        # copy of the state, timed just before and just after the epoch.
+        torch.backends.cudnn.deterministic = False
+        run_b4 = TimedTrainer(cfg, train_data, val_data, wd_b, seed=0)
+        bare_ms = [bare_step_ms(run_b4, 3)]
+        result["run_b_default"] = fit(run_b4, 4, "run B resumed, cuDNN "
+                                                 "default")
+        bare_ms.append(bare_step_ms(run_b4, 3))
+        rate = rates["bfloat16"][BATCH]
+        records_b = read_records(wd_b)
+        driver = {}
+        for ep, mode, train_s in ((3, "deterministic", det_train_s),
+                                  (4, "default",
+                                   run_b4.timings[4]["train_s"])):
+            driver[mode] = dict(
+                epoch=ep, per_step_ms=train_s / steps * 1e3,
+                img_per_s=records_b[ep - 1]["train/images_per_sec"])
+            print(f"[trainer] run B epoch {ep} (cuDNN {mode}): "
+                  f"{driver[mode]['img_per_s']:.1f} img/s through "
+                  f"Trainer.fit, {driver[mode]['per_step_ms']:.2f} ms a step "
+                  f"(the epoch's train time over its {steps} steps)",
+                  flush=True)
+        driver_ms = driver["default"]["per_step_ms"] - rate["step_ms"]
+        print(f"[trainer] phase 7's bare bf16 bs={BATCH} step (cuDNN "
+              f"default): {rate['img_per_s']:.1f} img/s, "
+              f"{rate['step_ms']:.2f} ms a step; so the epoch driver costs "
+              f"{driver_ms:.2f} ms a step on {card}", flush=True)
+        bracket_ms = (driver["default"]["per_step_ms"]
+                      - sum(bare_ms) / len(bare_ms))
+        print(f"[trainer] the epoch's {steps} steps without the epoch "
+              f"driver, just before and just after it: {bare_ms[0]:.2f} and "
+              f"{bare_ms[1]:.2f} ms a step; so the epoch driver costs "
+              f"{bracket_ms:.2f} ms a step", flush=True)
+        result["driver"] = dict(driver, phase7_step_ms=rate["step_ms"],
+                                phase7_img_per_s=rate["img_per_s"],
+                                driver_ms_per_step=driver_ms,
+                                bare_ms_per_step=bare_ms,
+                                driver_ms_per_step_bracketed=bracket_ms)
+        del run_b4
+        torch.cuda.empty_cache()
+
+        # The CLIs, as a user runs them.
+        if not have["PIL"]:
+            check(False, "the train CLI's synthetic data needs Pillow")
+        cli_dir = os.path.join(RUNS_DIR, "cli_run")
+        train_args = ("--variant", "v2", "--synthetic", "--synthetic-samples",
+                      "64", "--batch-size", "16")
+        run_cli("vae_gan_mark_tpu_torch.train", *train_args, "--epochs", "1",
+                "--workdir", cli_dir)
+        for name in ("last_checkpoint", "best_model"):
+            check(os.path.isfile(os.path.join(cli_dir, name, "state.pt")),
+                  f"the train CLI wrote no {name}")
+        out = run_cli("vae_gan_mark_tpu_torch.train", *train_args,
+                      "--epochs", "2", "--workdir", cli_dir)
+        check("[resume] from epoch 0" in out,
+              f"the second train CLI run did not resume: {out[-500:]}")
+        out = run_cli("vae_gan_mark_tpu_torch.eval", "--synthetic",
+                      "--workdir", cli_dir)
+        lines = out.strip().splitlines()
+        metrics = json.loads(lines[-1])
+        check(len(lines) == 1 and all(np.isfinite(v)
+                                      for v in metrics.values()),
+              f"eval CLI output: {out[-500:]}")
+        print(f"[trainer] eval CLI: {lines[-1]}", flush=True)
+        result["cli"] = dict(eval=metrics)
+
+        keep = os.path.join(OUT_DIR, "epoch_driver")
+        os.makedirs(keep, exist_ok=True)
+        for name, wd in (("run_a", wd_a), ("run_b", wd_b),
+                         ("cli_run", cli_dir)):
+            shutil.copy(os.path.join(wd, "v2.metrics.jsonl"),
+                        os.path.join(keep, f"{name}.metrics.jsonl"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return result
+
+
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
     ("gru forward kernel", ("gru_fwd_kernel",)),
     ("gru backward kernel", ("gru_bwd_kernel",)),
@@ -941,6 +1384,7 @@ def main() -> int:
     conv = phase_conv(conv_probe)
     serve = phase_serve(gru, card)
     train = phase_train(gru, card)
+    driver = phase_epoch_driver(gru, card, train["rates"])
 
     fwd_row, fwd_row_128 = (next(r for r in forward["rows"]
                                  if r["H"] == 256 and r["B"] == b)
@@ -957,7 +1401,9 @@ def main() -> int:
              launches_by_path=dict(
                  serve=serve["launches"],
                  train_bfloat16=train_launches["forward"],
-                 train_float32=train["float32"]["launches"]["forward"]),
+                 train_float32=train["float32"]["launches"]["forward"],
+                 epoch_driver_run_b=driver["run_b"]["launches"]["forward"],
+                 serve_from_checkpoint=driver["serve"]["launches"]),
              max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
              directions_per_launch=fwd_row["directions_per_launch"],
              ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
@@ -972,7 +1418,8 @@ def main() -> int:
              launches=train_launches["backward"],
              launches_by_path=dict(
                  train_bfloat16=train_launches["backward"],
-                 train_float32=train["float32"]["launches"]["backward"]),
+                 train_float32=train["float32"]["launches"]["backward"],
+                 epoch_driver_run_b=driver["run_b"]["launches"]["backward"]),
              max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
              directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
@@ -997,7 +1444,8 @@ def main() -> int:
         json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
                        build=build, gru_forward=forward,
                        gru_backward=backward, conv=conv, serve=serve,
-                       train=train, kernels=kernels), f, indent=1,
+                       train=train, epoch_driver=driver, kernels=kernels),
+                  f, indent=1,
                   default=str)
     print(f"[done] phases took {seconds:.1f} s", flush=True)
 

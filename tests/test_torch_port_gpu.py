@@ -233,3 +233,75 @@ def test_train_step_on_card_matches_cpu(card):
         scale = float(mom_cpu[key].abs().max())
         torch.testing.assert_close(mom_gpu[key], mom_cpu[key], rtol=0,
                                    atol=max(1e-3 * scale, floor))
+
+
+def trainer_on(card, workdir, steps=3):
+    """A tiny v2 Trainer on the card over device-resident synthetic data:
+    ``steps`` train batches and one val batch of 4 an epoch."""
+    from vae_gan_mark_tpu_torch.data.device_synthetic import (
+        DeviceResidentSynthetic)
+    from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from vae_gan_mark_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("v2", batch_size=4, **TINY)
+    train = DeviceResidentSynthetic(SyntheticPatchDataset(cfg, 4 * steps), 4,
+                                    steps, device=card)
+    val = DeviceResidentSynthetic(SyntheticPatchDataset(cfg, 4, seed=1), 4,
+                                  1, advance_per_epoch=False, device=card)
+    return Trainer(cfg, train, val, str(workdir), seed=0, device=card)
+
+
+def test_trainer_epoch_on_card_launches_the_gru_kernels(card, tmp_path):
+    """One epoch: 2 forward + 2 backward launches per train step (one per
+    BiGRU layer for both directions) and 2 forward per val batch."""
+    trainer = trainer_on(card, tmp_path)
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    trainer.fit(1)
+    torch.cuda.synchronize()
+    assert (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches) == (
+        2 * 3 + 2 * 1, 2 * 3)
+    assert trainer.state.step == 3
+    assert (tmp_path / "last_checkpoint" / "state.pt").is_file()
+    assert (tmp_path / "best_model" / "state.pt").is_file()
+
+
+def test_checkpoint_round_trip_on_card(card, tmp_path):
+    from vae_gan_mark_tpu_torch.train.checkpoint import restore_checkpoint
+
+    trainer = trainer_on(card, tmp_path)
+    trainer.fit(1)
+    fresh = trainer_on(card, tmp_path / "other")
+    meta = restore_checkpoint(str(tmp_path), "last_checkpoint", fresh.state)
+    assert meta["epoch"] == 0 and fresh.state.step == trainer.state.step
+    for a, b in ((fresh.state.generator, trainer.state.generator),
+                 (fresh.state.discriminator, trainer.state.discriminator)):
+        for (key, x), y in zip(a.state_dict().items(),
+                               b.state_dict().values()):
+            assert x.device.type == "cuda" and torch.equal(x, y), key
+    for a, b in ((fresh.state.opt_g, trainer.state.opt_g),
+                 (fresh.state.opt_d, trainer.state.opt_d)):
+        for pa, pb in zip(a.state.values(), b.state.values()):
+            for key in pb:
+                assert pa[key].device == pb[key].device, key
+                assert torch.equal(pa[key], pb[key]), key
+
+
+def test_from_checkpoint_on_card_matches_the_trained_generator(card,
+                                                                tmp_path):
+    trainer = trainer_on(card, tmp_path)
+    trainer.fit(1)
+    cfg = trainer.cfg
+    engine = InferenceEngine.from_checkpoint(cfg, str(tmp_path),
+                                             "last_checkpoint", batch_size=4,
+                                             seed=1, device=card)
+    reference = InferenceEngine(cfg, trainer.state.generator.state_dict(),
+                                batch_size=4, seed=1, device=card)
+    rng = np.random.default_rng(0)
+    ru = rng.uniform(0, 1, (5, 32, 64, 3)).astype(np.float32)
+    mask = (rng.uniform(0, 1, (5, 32, 64, 1)) > 0.5).astype(np.float32)
+    texts = ["a", "bc", "def", "", "SALE"]
+    gru.KERNEL.launches = 0
+    out = engine.generate(ru, mask, texts)
+    torch.cuda.synchronize()
+    assert gru.KERNEL.launches == 2 * 2              # 2 chunks of 4
+    assert np.array_equal(out, reference.generate(ru, mask, texts))

@@ -1,0 +1,231 @@
+"""Training command line of the port (the JAX package's ``cli.py``):
+
+    python -m vae_gan_mark_tpu_torch.train --variant v2 \\
+        --json-dir ... --ru-dir ... --en-dir ... --mask-dir ... \\
+        [--epochs N] [--batch-size N] [--workdir DIR] [--synthetic]
+
+Every config field can be overridden (``--set key=value``); credentials come
+only from the environment (``WANDB_API_KEY``). The run uses the card unless
+``--device cpu`` is given, and fails without one. Running the same command
+again resumes from the workdir's ``last_checkpoint``.
+
+The port's generator builds the char-conditioned U-Net variants (v2, unet);
+vanilla, lr_sh and oldv are refused. The JAX flags that wait for later work
+are not here: ``--loader device``, ``--multi-step``, ``--no-mesh`` and the
+multi-process flags.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+from vae_gan_mark_tpu_torch.config import VARIANTS, get_config
+
+NOT_PORTED = {
+    "vanilla": "the plain generator and the sbert text path",
+    "lr_sh": "the plain generator and the sbert text path",
+    "oldv": "the 3-level generator with gated skips and the char_posenc "
+            "text encoder",
+}
+
+
+def check_variant(variant: str) -> None:
+    """Exit with a message for a variant the port does not build yet."""
+    if variant in NOT_PORTED:
+        raise SystemExit(
+            f"variant {variant!r} is not ported to PyTorch yet "
+            f"({NOT_PORTED[variant]}; ROADMAP.md, 'Modules to port'); the "
+            f"port trains, serves and evaluates v2 and unet")
+
+
+def add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="run on the card (default; fails without one) or "
+                        "on the CPU")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="vae_gan_mark_tpu_torch.train",
+                                description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--variant", choices=sorted(VARIANTS), default="v2")
+    p.add_argument("--json-dir", help="annotation dir (*.json)")
+    p.add_argument("--ru-dir", help="RU images dir")
+    p.add_argument("--en-dir", help="EN images dir")
+    p.add_argument("--mask-dir", help="mask dir ({base}_ru.png)")
+    p.add_argument("--workdir", default="./checkpoints_vaegan",
+                   help="checkpoints + logs dir")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the synthetic dataset (smoke/bench)")
+    p.add_argument("--synthetic-samples", type=int, default=256)
+    p.add_argument("--device-data", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="keep the synthetic dataset on the device and "
+                        "gather batches there (auto: on when it takes "
+                        "less than 4 GiB)")
+    p.add_argument("--synthetic-text-vocab", type=int, default=0,
+                   help="draw synthetic mark strings from a closed N-string "
+                        "vocabulary shared across seeds (0 = per-sample "
+                        "random strings)")
+    p.add_argument("--synthetic-text-tile", action="store_true",
+                   help="watermark-style synthetic task: the mark string "
+                        "tiled at fixed positions across the patch, "
+                        "visible inside the mask")
+    p.add_argument("--synthetic-structured", action="store_true",
+                   help="smooth upsampled-noise backgrounds instead of "
+                        "per-pixel noise")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--patch-cache", default=None, metavar="DIR",
+                   help="persistent decoded-patch cache dir: decode and "
+                        "warp each sample once, stream later epochs from a "
+                        "memmap; prewarm with python -m "
+                        "vae_gan_mark_tpu_torch.data.patch_cache")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of epoch 2 here")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="torch.autograd.set_detect_anomaly(True): find the "
+                        "op that made a NaN (slow)")
+    # Any config field is overridable: --set epochs=10 --set lr_g=2e-4
+    p.add_argument("--set", action="append", default=[], metavar="KEY=VAL",
+                   help="override a VariantConfig field")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    add_device_flag(p)
+    return p
+
+
+def parse_overrides(cfg_cls, pairs):
+    fields = {f.name: f.type for f in dataclasses.fields(cfg_cls)}
+    out = {}
+    for pair in pairs:
+        key, _, val = pair.partition("=")
+        if "." in key:
+            # Nested dataclass field, e.g. scheduler.patience=5.
+            head, _, sub = key.partition(".")
+            if head not in fields:
+                raise SystemExit(f"unknown config field: {head}")
+            parent = getattr(get_config("v2"), head)
+            subfields = {f.name for f in dataclasses.fields(parent)}
+            if sub not in subfields:
+                raise SystemExit(f"unknown config field: {key}")
+            current = getattr(parent, sub)
+        else:
+            if key not in fields:
+                raise SystemExit(f"unknown config field: {key}")
+            current = getattr(get_config("v2"), key)
+        if isinstance(current, bool):
+            out[key] = val.lower() in ("1", "true", "yes")
+        elif isinstance(current, int):
+            out[key] = int(val)
+        elif isinstance(current, float):
+            out[key] = float(val)
+        elif isinstance(current, tuple):
+            out[key] = tuple(int(x) for x in val.split(","))
+        else:
+            out[key] = val
+    return out
+
+
+def synthetic_sources(cfg, args, device):
+    """Train and val data sources over the synthetic dataset: train batch i
+    of epoch e is ``batch(bs, i + e * steps)``, val batch i ``batch(bs,
+    i)``, on the device (gathered there) or from the host."""
+    from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    options = dict(text_vocab=args.synthetic_text_vocab,
+                   text_tile=args.synthetic_text_tile,
+                   structured=args.synthetic_structured)
+    train_ds = SyntheticPatchDataset(cfg, args.synthetic_samples,
+                                     seed=args.seed, **options)
+    val_ds = SyntheticPatchDataset(cfg, max(args.synthetic_samples // 8,
+                                            cfg.batch_size),
+                                   seed=args.seed + 1, **options)
+    bs = cfg.batch_size
+    steps = args.synthetic_samples // bs
+    val_steps = max(steps // 8, 1)
+    est_bytes = train_ds.ru.nbytes + train_ds.en.nbytes + train_ds.mask.nbytes
+    if args.device_data == "on" or (args.device_data == "auto"
+                                    and est_bytes < 4 << 30):
+        from vae_gan_mark_tpu_torch.data.device_synthetic import (
+            DeviceResidentSynthetic)
+        train_data = DeviceResidentSynthetic(train_ds, bs, steps,
+                                             device=device)
+        val_data = DeviceResidentSynthetic(val_ds, bs, val_steps,
+                                           advance_per_epoch=False,
+                                           device=device)
+        print(f"device-resident synthetic data: "
+              f"{train_data.nbytes() / 1e6:.0f} MB train + "
+              f"{val_data.nbytes() / 1e6:.0f} MB val on {device}")
+        return train_data, val_data
+
+    def train_data(epoch):
+        for i in range(steps):
+            yield train_ds.batch(bs, i + epoch * steps)
+
+    def val_data(epoch):
+        for i in range(val_steps):
+            yield val_ds.batch(bs, i)
+
+    return train_data, val_data
+
+
+def disk_sources(cfg, args):
+    """Train and val loaders over the on-disk dataset, split as the
+    reference does (grouped by RU image, ``cfg.val_split``,
+    ``cfg.split_seed``)."""
+    from vae_gan_mark_tpu_torch.data.index import build_index, grouped_split
+    from vae_gan_mark_tpu_torch.data.pipeline import HostWarpLoader
+    if not all((args.json_dir, args.ru_dir, args.en_dir, args.mask_dir)):
+        raise SystemExit("--json-dir/--ru-dir/--en-dir/--mask-dir are "
+                         "required without --synthetic")
+    samples = build_index(args.json_dir, args.ru_dir, args.en_dir,
+                          args.mask_dir)
+    print(f"indexed {len(samples)} samples")
+    train_idx, val_idx = grouped_split(samples, cfg.val_split,
+                                       cfg.split_seed)
+    print(f"train/val: {len(train_idx)}/{len(val_idx)}")
+    common = dict(batch_size=cfg.batch_size, seed=args.seed,
+                  num_workers=args.num_workers, cache_dir=args.patch_cache)
+    train_data = HostWarpLoader(cfg, samples, train_idx, shuffle=True,
+                                drop_last=True, **common)
+    val_data = HostWarpLoader(cfg, samples, val_idx, shuffle=False,
+                              drop_last=False, **common) if val_idx else None
+    return train_data, val_data
+
+
+def main(argv=None):
+    import torch
+
+    from vae_gan_mark_tpu_torch.config import VariantConfig
+    from vae_gan_mark_tpu_torch.train.loop import Trainer
+
+    args = build_parser().parse_args(argv)
+    check_variant(args.variant)
+    overrides = parse_overrides(VariantConfig, args.set)
+    if args.epochs is not None:
+        overrides["epochs"] = args.epochs
+    if args.batch_size is not None:
+        overrides["batch_size"] = args.batch_size
+    cfg = get_config(args.variant, **overrides)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to train on the CPU")
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+    if args.synthetic:
+        train_data, val_data = synthetic_sources(cfg, args, args.device)
+    else:
+        train_data, val_data = disk_sources(cfg, args)
+
+    trainer = Trainer(cfg, train_data, val_data, workdir=args.workdir,
+                      seed=args.seed, device=args.device,
+                      profile_dir=args.profile_dir)
+    best = trainer.fit()
+    print(f"done; best val recon: {best:.4f}")
+    trainer.logger.finish()
+
+
+if __name__ == "__main__":
+    main()

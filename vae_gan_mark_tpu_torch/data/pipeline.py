@@ -1,0 +1,153 @@
+"""Host input pipeline for on-disk data (the JAX package's
+``data/pipeline.py``, its host loader).
+
+``HostWarpLoader`` decodes each sample with PIL and warps its quad to the
+patch with cv2 (or, without cv2, the native C++ warp of
+``data/native_warp.py``, which agrees with cv2 to one gray level) on worker
+threads, as the reference's DataLoader workers do. The reference's defences
+stay: a sample that fails to load gives zero images and an empty text, and a
+batch that loses every sample is ``None``. Batches are dicts of numpy
+arrays {ru, en, mask: NHWC float32 in [0, 1], text: int32 tokens, raw_text};
+the trainer moves them to the card. ``cache_dir`` streams decoded patches
+from ``data/patch_cache.py`` after their first decode.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.data.index import Sample
+from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
+
+try:
+    import cv2
+except ImportError:
+    cv2 = None
+
+try:
+    from PIL import Image
+except ImportError:
+    Image = None
+
+# Forces the native C++ warp even when cv2 is present (tests set it).
+_FORCE_NATIVE = bool(os.environ.get("VGM_FORCE_NATIVE_WARP"))
+
+
+def _host_perspective_crop(img: np.ndarray, bbox, out_w: int,
+                           out_h: int) -> np.ndarray:
+    """The reference's warp: the quad's corners to the patch's corners,
+    bilinear, replicated border."""
+    pts_src = np.asarray(bbox, np.float32).reshape(4, 2)
+    if cv2 is not None and not _FORCE_NATIVE:
+        pts_dst = np.array([[0, 0], [out_w - 1, 0], [out_w - 1, out_h - 1],
+                            [0, out_h - 1]], np.float32)
+        m = cv2.getPerspectiveTransform(pts_src, pts_dst)
+        return cv2.warpPerspective(img, m, (out_w, out_h),
+                                   flags=cv2.INTER_LINEAR,
+                                   borderMode=cv2.BORDER_REPLICATE)
+    from vae_gan_mark_tpu_torch.data import native_warp
+    if not native_warp.available():
+        raise RuntimeError("neither cv2 nor the native warp library is "
+                           "available (g++ could not build native/warp.cc)")
+    return native_warp.perspective_crop(img, pts_src, out_w, out_h)
+
+
+def load_sample(sample: Sample, cfg: VariantConfig):
+    """Decode and warp one sample -> (ru, en, mask) float32 HWC in [0, 1]
+    and its text; zero images and "" on any failure."""
+    h, w = cfg.patch_h, cfg.patch_w
+    try:
+        ru_img = np.asarray(Image.open(sample.ru_image_path).convert("RGB"))
+        if sample.en_image_path:
+            en_img = np.asarray(
+                Image.open(sample.en_image_path).convert("RGB"))
+        else:
+            en_img = np.zeros_like(ru_img)
+        if sample.mask_path:
+            mask_img = np.asarray(
+                Image.open(sample.mask_path).convert("L"))
+        else:
+            mask_img = np.zeros(ru_img.shape[:2], np.uint8)
+
+        ru = _host_perspective_crop(ru_img, sample.bbox_ru, w, h)
+        if sample.bbox_en:
+            en = _host_perspective_crop(en_img, sample.bbox_en, w, h)
+        else:
+            en = np.zeros((h, w, 3), np.uint8)
+        mask = _host_perspective_crop(mask_img, sample.bbox_ru, w, h)
+        return (ru.astype(np.float32) / 255.0,
+                en.astype(np.float32) / 255.0,
+                mask.astype(np.float32)[..., None] / 255.0,
+                sample.text)
+    except Exception:
+        return (np.zeros((h, w, 3), np.float32),
+                np.zeros((h, w, 3), np.float32),
+                np.zeros((h, w, 1), np.float32),
+                "")
+
+
+class HostWarpLoader:
+    """Data source (``epoch -> iterator of batches``) over a subset of the
+    index; with ``shuffle`` the order is a permutation drawn from
+    ``seed + epoch``."""
+
+    def __init__(self, cfg: VariantConfig, samples: Sequence[Sample],
+                 indices: Sequence[int], batch_size: Optional[int] = None,
+                 shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, num_workers: int = 8,
+                 cache_dir: Optional[str] = None):
+        self.cfg = cfg
+        self.samples = samples
+        self.indices = list(indices)
+        self.batch_size = batch_size or cfg.batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_workers = num_workers
+        self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
+        self.cache = None
+        if cache_dir is not None:
+            from vae_gan_mark_tpu_torch.data.patch_cache import PatchCache
+            self.cache = PatchCache(cache_dir, cfg, samples)
+
+    def __len__(self):
+        n = len(self.indices)
+        b = self.batch_size
+        return n // b if self.drop_last else (n + b - 1) // b
+
+    def _encode_text(self, texts: List[str]) -> np.ndarray:
+        return self.tokenizer.encode(texts)
+
+    def __call__(self, epoch: int) -> Iterator[dict]:
+        order = np.asarray(self.indices)
+        if self.shuffle:
+            order = np.random.default_rng(
+                self.seed + epoch).permutation(order)
+        b = self.batch_size
+        limit = len(order) - (len(order) % b) if self.drop_last else len(order)
+        if self.cache is not None:
+            for start in range(0, limit, b):
+                yield self.cache.batch(order[start:start + b],
+                                       self.num_workers)
+            return
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            for start in range(0, limit, b):
+                chunk = order[start:start + b]
+                loaded = list(pool.map(
+                    lambda i: load_sample(self.samples[int(i)], self.cfg),
+                    chunk))
+                if not loaded:
+                    yield None
+                    continue
+                ru = np.stack([s[0] for s in loaded])
+                en = np.stack([s[1] for s in loaded])
+                mask = np.stack([s[2] for s in loaded])
+                texts = [s[3] for s in loaded]
+                yield {"ru": ru, "en": en, "mask": mask,
+                       "text": self._encode_text(texts),
+                       "raw_text": texts}

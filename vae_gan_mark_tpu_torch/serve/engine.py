@@ -10,8 +10,9 @@ The reparameterisation noise of the chunk that starts at request row
 (the counterpart of ``fold_in(rng, start)``) and is then moved to the
 device, so one seed gives the same noise on every device.
 
-The checkpoint format with ``from_checkpoint`` and the serve CLI come with
-the training slice.
+``InferenceEngine.from_checkpoint`` serves the generator of a trainer's
+checkpoint (``train/checkpoint.py``); ``python -m vae_gan_mark_tpu_torch.serve``
+renders one image with it.
 """
 
 from __future__ import annotations
@@ -61,6 +62,22 @@ class InferenceEngine:
             model = VAEGANGenerator(cfg)
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: VariantConfig, workdir: str,
+                        name: str = "best_model", batch_size: int = 16,
+                        seed: int = 0,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> "InferenceEngine":
+        """The generator of checkpoint ``workdir/name`` (its BatchNorm
+        statistics included); the discriminator and the optimizers in the
+        file are not used. ``cfg`` must be the training run's."""
+        from vae_gan_mark_tpu_torch.train.checkpoint import load_state_file
+        saved = load_state_file(workdir, name, mmap=True)
+        if saved is None:
+            raise FileNotFoundError(f"no checkpoint {name} in {workdir}")
+        return cls(cfg, saved["generator"], batch_size=batch_size, seed=seed,
+                   device=device)
 
     # ------------------------------------------------------------------
     def _pad(self, arr: np.ndarray) -> np.ndarray:

@@ -8,17 +8,48 @@ The reference keeps two Adam optimizers with betas (0.5, 0.999) and eps
 norm ``cfg.grad_clip_norm`` before its Adam step (``clip_by_global_norm_``);
 D's is not clipped. Learning rates can change between steps
 (``get_lr`` / ``set_lr``), as the plateau schedule does between epochs.
+
+``init_state_dicts(cfg, seed)`` draws a fresh G and D from the JAX
+initializers' distributions; ``vgg_state_dict()`` gives the frozen VGG head
+(ported weights from ``tools/vgg16_features.npz`` when present, else a
+fixed-seed random head).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Union
+import os
+from typing import Dict, Iterable, Mapping, Union
 
+import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.models.discriminator import PatchDiscriminator
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
+from vae_gan_mark_tpu_torch.utils.port_jax import (  # noqa: F401
+    init_state_dicts, init_vgg_state_dict, vgg_state_dict_from_jax)
+
+# Ported torchvision VGG16 weights, when present (``tools/port_vgg16.py``
+# writes them: ``conv{i}_kernel`` HWIO and ``conv{i}_bias``).
+VGG_WEIGHTS_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "tools", "vgg16_features.npz")
+# The seed of the random VGG used without that file. The JAX package draws
+# its random VGG from PRNGKey(16), which torch cannot reproduce: the port's
+# has the same distributions (lecun_normal kernels, zero biases), other
+# values.
+VGG_SEED = 16
+
+
+def vgg_state_dict(path: str = VGG_WEIGHTS_PATH) -> Dict[str, torch.Tensor]:
+    """The perceptual loss's frozen VGG16 head: the weights at ``path``
+    when the file exists, else a fixed-seed random init."""
+    if os.path.exists(path):
+        data = np.load(path)
+        return vgg_state_dict_from_jax({
+            f"conv{i}": {"kernel": data[f"conv{i}_kernel"],
+                         "bias": data[f"conv{i}_bias"]} for i in range(7)})
+    return init_vgg_state_dict(VGG_SEED)
 
 
 def make_g_optimizer(cfg: VariantConfig,

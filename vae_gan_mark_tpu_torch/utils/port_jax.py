@@ -24,7 +24,9 @@ char-conditioned U-Net generators (v2 with FiLM, unet without), the
 unconditional discriminator and VGG16 ``features[:16]``. The seeded trees
 stand in for weights that cannot be reproduced with torch's RNG (the JAX
 initialisers, VGG's fixed ``PRNGKey(16)``), so that a run without JAX can
-build every network.
+build every network: ``random_*`` are test weights (He kernels, random
+BatchNorm statistics), ``init_state_dicts`` and ``init_vgg_state_dict`` a
+training init from the JAX initializers' distributions.
 """
 
 from __future__ import annotations
@@ -237,11 +239,57 @@ def _random_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     return value.astype(np.float32)
 
 
-def _random_trees(entries: Iterator[Entry], seed: int) -> Dict[str, Tree]:
+# lecun_normal draws a normal truncated to [-2, 2] and rescales it by this
+# factor, the standard deviation of that truncated normal.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    value = rng.standard_normal(shape, dtype=np.float32)
+    flat = value.reshape(-1)
+    redraw = np.flatnonzero(np.abs(flat) > 2.0)
+    while redraw.size:
+        flat[redraw] = rng.standard_normal(redraw.size, dtype=np.float32)
+        redraw = redraw[np.abs(flat[redraw]) > 2.0]
+    return value
+
+
+def _init_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
+    """One leaf from the distribution of the JAX module's own initializer:
+    kernels ``lecun_normal`` (fan-in = the product of all but the output
+    axis of the HWIO shape), the GRU's uniform(-1/sqrt(H), 1/sqrt(H)), flax
+    ``nn.Embed``'s normal(0, 1/sqrt(features)), ``u`` a normal vector over
+    its norm, and the constants: scales and variances one, biases and means
+    zero."""
+    name = e.path[-1]
+    if e.kind in ("conv", "tconv"):
+        fan_in = int(np.prod(e.shape[:-1]))
+        value = _truncated_normal(rng, e.shape) * np.float32(
+            np.sqrt(1.0 / fan_in) / _TRUNCATED_STD)
+    elif name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        bound = 1.0 / np.sqrt(e.shape[-1] // 3)
+        value = rng.uniform(-bound, bound, e.shape)
+    elif name == "embedding":
+        value = rng.standard_normal(e.shape, dtype=np.float32) * np.float32(
+            np.sqrt(1.0 / e.shape[-1]))
+    elif name == "u":
+        value = rng.standard_normal(e.shape)
+        value /= np.linalg.norm(value) + 1e-12
+    elif name in ("scale", "bn_scale", "var", "bn_var"):
+        value = np.ones(e.shape)
+    elif name in ("bias", "bn_bias", "gb_bias", "mean", "bn_mean"):
+        value = np.zeros(e.shape)
+    else:
+        raise ValueError(f"no initializer for {'/'.join(e.path)}")
+    return value.astype(np.float32, copy=False)
+
+
+def _random_trees(entries: Iterator[Entry], seed: int,
+                  leaf=_random_leaf) -> Dict[str, Tree]:
     rng = np.random.default_rng(seed)
     trees: Dict[str, Tree] = {}
     for e in entries:
-        _set(trees.setdefault(e.collection, {}), e.path, _random_leaf(rng, e))
+        _set(trees.setdefault(e.collection, {}), e.path, leaf(rng, e))
     return trees
 
 
@@ -277,6 +325,27 @@ def random_vgg_tree(seed: int) -> Tree:
     """Seeded random VGG16-head params in the JAX layout (``conv0`` ..
     ``conv6``, He-normal kernels)."""
     return _random_trees(_vgg_entries(), seed)["params"]
+
+
+def init_state_dicts(cfg: VariantConfig, seed: int
+                     ) -> Tuple[Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """A fresh training init: the generator's and the unconditional
+    discriminator's ``state_dict``s drawn with numpy from ``seed``, from the
+    distributions of the JAX modules' initializers (``_init_leaf``). The
+    values differ from a flax init's; the distributions are the same."""
+    rng = np.random.default_rng(seed)
+    g_entries, d_entries = list(_entries(cfg)), list(_disc_entries())
+    g = _random_trees(g_entries, int(rng.integers(2 ** 63)), _init_leaf)
+    d = _random_trees(d_entries, int(rng.integers(2 ** 63)), _init_leaf)
+    return _state_dict(g_entries, g), _state_dict(d_entries, d)
+
+
+def init_vgg_state_dict(seed: int) -> Dict[str, torch.Tensor]:
+    """VGG16-head ``state_dict`` from the JAX VGG's initializers (flax
+    ``nn.Conv``: ``lecun_normal`` kernels, zero biases)."""
+    entries = list(_vgg_entries())
+    return _state_dict(entries, _random_trees(entries, seed, _init_leaf))
 
 
 def state_dict_from_jax(params: Tree, batch_stats: Tree,
