@@ -61,7 +61,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CLI; img/s per epoch and the epoch driver's cost per step, against
    phase 7 and against the epoch's steps run without the epoch driver just
    before and after it;
-9. print the kernels' JSON line and, last, the device line.
+9. ``multi_step`` through CUDA graphs (``train/graphs.py``): the GRU
+   forward and backward alone captured and replayed against eager
+   launches; v2 at full width, bf16, batch 16, with
+   ``cudnn.deterministic``: 8 steps from one saved state as eager steps
+   and as 2 groups of 4 graph replays, bit for bit (G, D, BN statistics,
+   u, both Adams, the summed metrics), and 4 val batches the same way;
+   wall (host clock over 32 steps) against device (one profiled group) ms
+   a step for K in {1, 4, 16}; ``Trainer.fit`` with multi_step=4 (run A, 2
+   epochs, resumed with multi_step=1 for a third, against run B, 3 epochs,
+   bit for bit), the GRU launches of every fit, one group's counts against
+   the kernels in its profile, and the train CLI with ``--multi-step 4``;
+10. oldv at full width (448x64, ``enc_chans=(32,64,128)``, a height-4 text
+   map): serving in bf16 and f32 (img/s, 2 GRU launches a chunk, CUDA
+   against CPU), 5 bf16 train steps (ms a step, 2 + 2 GRU launches), one
+   f32 step CUDA against CPU at B=2 with phase 7's limits, a profiled bf16
+   step by kernel class;
+11. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -116,6 +132,12 @@ BF16_MAX_ABS, BF16_MEAN_ABS = 0.05, 0.01
 STEP_LOSS_RTOL, STEP_BUFFER_ATOL, STEP_BUFFER_RTOL = 1e-4, 1e-5, 1e-4
 STEP_MOMENT_L2, STEP_MOMENT_ZERO = 5e-2, 1e-3
 ZERO_GRADIENT_PARAMS = ("image_vae_decoder_module.bottleneck_proc.0.bias",)
+# oldv's step moves D's u further apart: u is one power iteration on D's
+# weights after their first Adam update, lr * g / (|g| + eps), which turns
+# the devices' gradient differences where |g| is near eps into steps of up
+# to lr = 1e-4 in either direction. On an H100 it read 1.46 of phase 7's
+# limit (1.7e-5 on u near 0.2) against 0.84 for v2. Held to atol 1e-4 (lr).
+OLDV_U_ATOL = 1e-4
 
 L_TEXT = 60
 BATCH = 16
@@ -741,10 +763,14 @@ def l2_spread(a: dict, b: dict) -> list:
                   for k in b if k not in ZERO_GRADIENT_PARAMS)
 
 
-def compare_devices(cfg, weights) -> dict:
+def compare_devices(cfg, weights, one_thread: bool = True,
+                    u_atol: float = STEP_BUFFER_ATOL) -> dict:
     """One float32 step at B=2, dropout 0, same weights, batch and eps, on
-    the card and on the CPU; the CPU step once more on one thread, whose
-    spread against the CPU's default threads is sum order alone."""
+    the card and on the CPU; with ``one_thread`` the CPU step once more on
+    one thread, whose spread against the CPU's default threads is sum order
+    alone. D's spectral u is held to ``u_atol`` + STEP_BUFFER_RTOL, the
+    BatchNorm statistics to phase 7's limit; both readings are printed
+    against phase 7's limit."""
     import dataclasses
 
     from vae_gan_mark_tpu_torch.train import build_train_step
@@ -752,8 +778,10 @@ def compare_devices(cfg, weights) -> dict:
     cfg = dataclasses.replace(cfg, char_rnn_dropout=0.0)
     threads = torch.get_num_threads()
     runs = {}
-    for device, n_threads in (("cuda", threads), ("cpu", threads),
-                              ("cpu_1_thread", 1)):
+    runs_on = [("cuda", threads), ("cpu", threads)]
+    if one_thread:
+        runs_on.append(("cpu_1_thread", 1))
+    for device, n_threads in runs_on:
         torch.set_num_threads(n_threads)
         dev = device.split("_")[0]
         state, vgg = make_trainer(cfg, weights, dev)
@@ -771,18 +799,27 @@ def compare_devices(cfg, weights) -> dict:
     loss_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
                    for k in m_cpu)
     # Buffers: |err| <= atol + rtol * |cpu|, read as a share of that limit.
-    buffer_err = max(((b_gpu[k] - b_cpu[k]).abs()
-                      / (STEP_BUFFER_ATOL + STEP_BUFFER_RTOL
-                         * b_cpu[k].abs())).max().item() for k in b_cpu)
+    def share(keys, atol=STEP_BUFFER_ATOL):
+        return max(((b_gpu[k] - b_cpu[k]).abs()
+                    / (atol + STEP_BUFFER_RTOL * b_cpu[k].abs())).max().item()
+                   for k in keys)
+
+    u_keys = [k for k in b_cpu if "weight_u" in k]
+    bn_err = share([k for k in b_cpu if k not in u_keys])
+    u_err = share(u_keys)
+    buffer_err = max(bn_err, u_err)
     net_max = max(v.abs().max().item() for v in mom_cpu.values())
     zero_err = max((mom_gpu[k] - mom_cpu[k]).abs().max().item()
                    / (STEP_MOMENT_ZERO * net_max) for k in ZERO_GRADIENT_PARAMS)
     devices = l2_spread(mom_gpu, mom_cpu)
-    cpu_threads = l2_spread(runs["cpu_1_thread"][2], mom_cpu)
+    cpu_threads = (l2_spread(runs["cpu_1_thread"][2], mom_cpu)
+                   if one_thread else [(float("nan"), "not run")])
     moment_err = max(devices[-1][0] / STEP_MOMENT_L2, zero_err)
     result = dict(losses_cuda=m_gpu, losses_cpu=m_cpu,
                   loss_max_rel_err=loss_err,
                   buffer_err_over_limit=buffer_err,
+                  bn_err_over_limit=bn_err, u_err_over_limit=u_err,
+                  u_atol=u_atol,
                   moment_err_over_limit=moment_err,
                   moment_l2_median=devices[len(devices) // 2][0],
                   worst_moments=devices[-3:],
@@ -792,16 +829,20 @@ def compare_devices(cfg, weights) -> dict:
                   zero_gradient_err_over_limit=zero_err,
                   largest_moment=net_max)
     print(f"[train] CUDA vs CPU float32 step at B=2: losses max rel err "
-          f"{loss_err:.2e} (limit {STEP_LOSS_RTOL}), BN/u at "
-          f"{buffer_err:.3f} of their limit; G's Adam moments per tensor "
+          f"{loss_err:.2e} (limit {STEP_LOSS_RTOL}), BN statistics at "
+          f"{bn_err:.3f} and D's u at {u_err:.3f} of phase 7's limit"
+          + (f" (u held to atol {u_atol:.0e}: {share(u_keys, u_atol):.3f})"
+             if u_atol != STEP_BUFFER_ATOL else "")
+          + f"; G's Adam moments per tensor "
           f"L2 median {result['moment_l2_median']:.2e}, worst "
           f"{devices[-1][0]:.2e} ({devices[-1][1]}; limit {STEP_MOMENT_L2});"
           f" CPU 1 vs {threads} threads: median "
           f"{result['cpu_1_thread_l2_median']:.2e}, worst "
           f"{cpu_threads[-1][0]:.2e}; zero-gradient bias at {zero_err:.3f} "
           f"of its limit", flush=True)
-    check(loss_err <= STEP_LOSS_RTOL and buffer_err <= 1.0
-          and moment_err <= 1.0, f"CUDA vs CPU train step: {result}")
+    check(loss_err <= STEP_LOSS_RTOL and bn_err <= 1.0
+          and share(u_keys, u_atol) <= 1.0 and moment_err <= 1.0,
+          f"CUDA vs CPU train step: {result}")
     return result
 
 
@@ -950,6 +991,7 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
     from vae_gan_mark_tpu_torch.serve import InferenceEngine
     from vae_gan_mark_tpu_torch.train.loop import Trainer, make_generator
     from vae_gan_mark_tpu_torch.train.schedule import kl_weight_for_epoch
+    from vae_gan_mark_tpu_torch.train.state import get_lr
 
     have = {}
     for module in ("PIL", "cv2"):
@@ -1107,8 +1149,8 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         a_host = dict(epoch=1, best_val=run_a.best_val,
                       sched_g=copy.copy(run_a.sched_g),
                       sched_d=copy.copy(run_a.sched_d),
-                      lr_g=run_a.state.opt_g.param_groups[0]["lr"],
-                      lr_d=run_a.state.opt_d.param_groups[0]["lr"],
+                      lr_g=get_lr(run_a.state.opt_g),
+                      lr_d=get_lr(run_a.state.opt_d),
                       step=run_a.state.step)
         del run_a
         torch.cuda.empty_cache()
@@ -1120,8 +1162,8 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         differ = [k for k in a_end if not torch.equal(got[k], a_end[k])]
         got_host = dict(epoch=resumed.epoch - 1, best_val=resumed.best_val,
                         sched_g=resumed.sched_g, sched_d=resumed.sched_d,
-                        lr_g=resumed.state.opt_g.param_groups[0]["lr"],
-                        lr_d=resumed.state.opt_d.param_groups[0]["lr"],
+                        lr_g=get_lr(resumed.state.opt_g),
+                        lr_d=get_lr(resumed.state.opt_d),
                         step=resumed.state.step)
         check(not differ and got_host == a_host,
               f"resume: restored state differs from run A's end: tensors "
@@ -1295,6 +1337,492 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
     return result
 
 
+# Phase 9: multi_step through CUDA graphs. v2 at full width, bf16, bs 16.
+MULTI_K = 4
+# Wall time of the step by the host clock over this many steps for each K.
+TIMED_STEPS = 32
+
+
+def group_state_tensors(state) -> dict:
+    return {k: v.detach().clone() for k, v in state_tensors(state).items()}
+
+
+def phase_graph_probe(gru) -> dict:
+    """The GRU forward and backward alone, captured in one CUDA graph at
+    L=60, B=16, H=256 (both directions of a layer, 8-CTA clusters launched
+    with ``cudaLaunchKernelEx``): replays on new inputs against eager
+    launches, bit for bit."""
+    from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = [t.requires_grad_() for t in (*gru_inputs(gen, BATCH, 256)[1:],
+                                           *gru_inputs(gen, BATCH, 256)[1:])]
+
+    def inputs(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return {"ru": torch.randn(L_TEXT, BATCH, 768, device="cuda",
+                                  generator=g),
+                "en": torch.randn(L_TEXT, BATCH, 768, device="cuda",
+                                  generator=g),
+                "mask": torch.randn(L_TEXT, BATCH, 512, device="cuda",
+                                    generator=g)}
+
+    def fwd_bwd(batch, generator=None, kl=None):
+        x_f = batch["ru"].clone().requires_grad_()
+        x_b = batch["en"].clone().requires_grad_()
+        outs = gru.bigru_recurrence_grad(x_f, params[0], params[1], x_b,
+                                         params[2], params[3])
+        grads = torch.autograd.grad(
+            outs, [x_f, x_b, *params],
+            [batch["mask"][..., :256].contiguous(),
+             batch["mask"][..., 256:].contiguous()])
+        return [*outs, *grads]
+
+    fwd_bwd(inputs(0))
+    gru.KERNEL.prepare(BATCH, 256)
+    gru.BACKWARD_KERNEL.prepare(BATCH, 256)
+    graph = CapturedStep(fwd_bwd, inputs(0))
+    recorded = (graph.launches.get(gru.KERNEL, 0),
+                graph.launches.get(gru.BACKWARD_KERNEL, 0))
+    check(recorded == (1, 1), f"graph probe: the capture recorded "
+                              f"{recorded} GRU launches, expected (1, 1)")
+    diffs = []
+    for seed in (1, 2):
+        batch = inputs(seed)
+        got = [t.clone() for t in graph.replay(batch, 0, 0.0)]
+        diffs.append(max((a - b).abs().max().item()
+                         for a, b in zip(got, fwd_bwd(batch))))
+    check(max(diffs) == 0.0, f"graph probe: replay against eager {diffs}")
+    replay_ms = cuda_time_ms(lambda: graph.replay(inputs(3), 0, 0.0), 20)
+    spreads = determinism_spreads(fwd_bwd, inputs(4))
+    print(f"[graphs] GRU forward + backward (B={BATCH}, H=256) captured: "
+          f"one launch of each recorded; two replays on new inputs equal "
+          f"eager launches bit for bit; {replay_ms:.3f} ms a replay "
+          f"(input copies included)", flush=True)
+    return dict(recorded=recorded, max_abs_diff=max(diffs),
+                replay_ms=replay_ms, repeat_spreads=spreads)
+
+
+def determinism_spreads(gru_fwd_bwd, batch, repeats: int = 10) -> dict:
+    """Why float32 steps on the card do not repeat bit for bit and bf16
+    ones do: the largest difference over ``repeats`` runs of the same
+    inputs, for the GRU kernels (forward and backward) and for bilinear
+    upsampling's backward on the FiLM text map (float32 atomic adds; its
+    incoming gradient in float32 and as bf16 values)."""
+    import torch.nn.functional as F
+
+    def spread(fn):
+        first = [t.clone() for t in fn()]
+        return max(max((a - b).abs().max().item()
+                       for a, b in zip(fn(), first))
+                   for _ in range(repeats))
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(BATCH, 512, 1, 28, device="cuda", generator=gen,
+                    requires_grad=True)
+    grad = torch.randn(BATCH, 512, 1, 448, device="cuda", generator=gen)
+
+    def upsample_backward(g):
+        y = F.interpolate(x, size=(1, 448), mode="bilinear",
+                          align_corners=False)
+        return torch.autograd.grad(y, [x], g)
+
+    result = dict(
+        gru=spread(lambda: gru_fwd_bwd(batch)),
+        upsample_backward_f32=spread(lambda: upsample_backward(grad)),
+        upsample_backward_bf16_values=spread(
+            lambda: upsample_backward(grad.bfloat16().float())))
+    print(f"[graphs] the same inputs {repeats + 1} times: the GRU kernels "
+          f"differ by {result['gru']:.3e}; bilinear upsampling's backward "
+          f"(16, 512, 1, 28) <- 448 columns by "
+          f"{result['upsample_backward_f32']:.3e} with a float32 gradient "
+          f"and {result['upsample_backward_bf16_values']:.3e} with bf16 "
+          f"values", flush=True)
+    check(result["gru"] == 0.0, f"the GRU kernels do not repeat: {result}")
+    return result
+
+
+def phase_multi_step(gru, card: str) -> dict:
+    """v2 at full width, bf16, batch 16: graph replays against eager steps
+    from one saved state (bit for bit, with cudnn.deterministic), the
+    eval step the same way, then wall against device time per step for K
+    in {1, 4, 16}."""
+    import copy
+
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.train import (
+        build_eval_step, build_multi_eval_step, build_multi_train_step,
+        build_train_step)
+    from vae_gan_mark_tpu_torch.train.loop import make_generator
+
+    result = dict(probe=phase_graph_probe(gru))
+    cfg = get_config("v2", compute_dtype="bfloat16")
+    state, vgg = make_trainer(cfg, train_weights(cfg), "cuda")
+    single = build_train_step(cfg)
+    batches = [train_batch(cfg, BATCH, 600 + i, "cuda")
+               for i in range(TIMED_STEPS)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        # One eager group: Adam's state and the signature's warm-up.
+        state, _ = build_multi_train_step(cfg)(state, vgg, batches[:MULTI_K],
+                                               0, 1e-3)
+        saved = copy.deepcopy(state)
+        eager, sums_e = copy.deepcopy(saved), None
+        for batch in batches[:8]:
+            eager, m = single(eager, vgg, batch, make_generator(
+                "cuda", 0, eager.step), 1e-3)
+            sums_e = m if sums_e is None else {k: sums_e[k] + m[k]
+                                               for k in sums_e}
+        replayed, multi = copy.deepcopy(saved), build_multi_train_step(cfg)
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        sums_g = None
+        for i in range(0, 8, MULTI_K):
+            replayed, sums_g = multi(replayed, vgg, batches[i:i + MULTI_K],
+                                     0, 1e-3, sums_g)
+        torch.cuda.synchronize()
+        launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        check(launches == (16, 16), f"8 replayed steps: GRU launches "
+                                    f"{launches}, expected (16, 16)")
+        a, b = state_tensors(eager), state_tensors(replayed)
+        check(a.keys() == b.keys(), "replayed state has other tensors")
+        state_diff = max_abs_diff(a, b)
+        metric_diff = max(abs(float(sums_e[k]) - float(sums_g[k]))
+                          for k in sums_e)
+        print(f"[graphs] 8 bf16 steps at bs={BATCH} from one state, cuDNN "
+              f"deterministic: eager against 2 groups of {MULTI_K} graph "
+              f"replays: G, D, BN statistics, u, both Adams differ by "
+              f"{state_diff:.3e}, the summed metrics by {metric_diff:.3e} "
+              f"(limit 0: bit for bit); GRU launches {launches}",
+              flush=True)
+        check(state_diff == 0.0 and metric_diff == 0.0
+              and eager.step == replayed.step,
+              f"graph replays against eager: state {state_diff}, metrics "
+              f"{metric_diff}")
+        del eager, multi, a, b
+        result["plain_adam_max_abs_diff"] = plain_adam_reading(
+            saved, vgg, single, batches[0], cfg)
+        del saved
+
+        # The eval step: eager warm-up, then a group of K replays.
+        val = batches[8:8 + MULTI_K]
+        idxs = list(range(MULTI_K))
+        build_multi_eval_step(cfg)(replayed, vgg, val, idxs, 0, 1e-3)
+        multi_eval = build_multi_eval_step(cfg)
+        got, fake0 = multi_eval(replayed, vgg, val, idxs, 0, 1e-3)
+        eval_step = build_eval_step(cfg)
+        ref = [eval_step(replayed, vgg, v, make_generator(
+            "cuda", 0, i, replayed.step), 1e-3) for i, v in zip(idxs, val)]
+        eval_diff = max(max(abs(float(g[k]) - float(r[0][k])) for k in g)
+                        for g, r in zip(got, ref))
+        fake_diff = (fake0 - ref[0][1]).abs().max().item()
+        print(f"[graphs] eval: {MULTI_K} val batches as graph replays "
+              f"against eager eval steps: metrics differ by {eval_diff:.3e},"
+              f" batch 0's patches by {fake_diff:.3e} (limit 0)",
+              flush=True)
+        check(eval_diff == 0.0 and fake_diff == 0.0,
+              f"eval replays against eager: {eval_diff}, {fake_diff}")
+        result.update(state_max_abs_diff=state_diff,
+                      metric_max_abs_diff=metric_diff,
+                      eval_max_abs_diff=max(eval_diff, fake_diff),
+                      launches_8_steps=launches)
+        del multi_eval, got, fake0, ref
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    result["wall_vs_device"] = wall_vs_device(replayed, vgg, cfg, single,
+                                              batches, card)
+    del replayed, batches
+    torch.cuda.empty_cache()
+    return result
+
+
+def plain_adam_reading(saved, vgg, single, batch, cfg) -> float:
+    """Why the port's Adams are capturable for every K: one step from
+    ``saved`` with its capturable Adams against the same step with plain
+    ones loaded from the same state (bias corrections in float32 on the
+    card against double precision on the host): the largest parameter
+    difference."""
+    import copy
+
+    from vae_gan_mark_tpu_torch.train.loop import make_generator
+    from vae_gan_mark_tpu_torch.train.state import load_optimizer_state
+
+    after = []
+    for plain in (False, True):
+        state = copy.deepcopy(saved)
+        if plain:
+            for name, module, lr in (("opt_g", state.generator, cfg.lr_g),
+                                     ("opt_d", state.discriminator,
+                                      cfg.lr_d)):
+                opt = torch.optim.Adam(module.parameters(), lr=lr,
+                                       betas=(cfg.adam_b1, cfg.adam_b2),
+                                       eps=1e-8)
+                load_optimizer_state(opt, getattr(state, name).state_dict())
+                setattr(state, name, opt)
+        state, _ = single(state, vgg, batch, make_generator(
+            "cuda", 0, state.step), 1e-3)
+        after.append({k: v.detach().clone() for k, v in
+                      state_tensors(state).items() if k[:2] in ("G.", "D.")})
+        del state
+    diff = max_abs_diff(*after)
+    print(f"[graphs] one step with capturable Adams against plain ones from "
+          f"the same state: parameters differ by {diff:.3e}", flush=True)
+    return diff
+
+
+def wall_vs_device(state, vgg, cfg, single, batches, card: str) -> dict:
+    """ms a step for K = 1 (eager, a generator a step as the Trainer makes
+    it) and K = 4, 16 (replays): the host clock over TIMED_STEPS steps, the
+    device busy time of one profiled group, the idle share."""
+    from vae_gan_mark_tpu_torch.train import build_multi_train_step
+    from vae_gan_mark_tpu_torch.train.loop import make_generator
+
+    rows = {}
+    for k in (1, 4, 16):
+        multi = build_multi_train_step(cfg) if k > 1 else None
+
+        def group(start, multi=multi, k=k):
+            nonlocal state
+            chunk = [batches[(start + j) % len(batches)] for j in range(k)]
+            if multi is None:
+                state, _ = single(state, vgg, chunk[0], make_generator(
+                    "cuda", 0, state.step), 1e-3)
+            else:
+                state, _ = multi(state, vgg, chunk, 0, 1e-3)
+
+        for start in range(0, 2 * k, k):      # warm-up and capture
+            group(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, TIMED_STEPS, k):
+            group(start)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        prof = profile_call(lambda: (group(0), torch.cuda.synchronize()),
+                            f"one group of K={k} bf16 steps", wall_ms * k)
+        busy_ms = prof["device_busy_ms"] / k
+        rows[k] = dict(wall_ms=wall_ms, device_ms=busy_ms,
+                       idle_share=1.0 - busy_ms / wall_ms,
+                       wall_over_device=wall_ms / busy_ms,
+                       classes=prof["classes"])
+        del multi
+        torch.cuda.empty_cache()
+    print(f"[graphs] bf16 bs={BATCH} step on {card}, wall by the host clock "
+          f"over {TIMED_STEPS} steps, device busy from one profiled group:",
+          flush=True)
+    for k, r in rows.items():
+        how = "eager" if k == 1 else "graph replays"
+        print(f"[graphs]   K={k:2d} ({how}): wall {r['wall_ms']:.2f} ms, "
+              f"device {r['device_ms']:.2f} ms, idle share "
+              f"{r['idle_share']:.3f}, wall/device {r['wall_over_device']:.3f}"
+              f" (the target of ROADMAP item 7, within ~10%: a reading, not "
+              f"a check)", flush=True)
+    return rows
+
+
+def phase_multi_step_driver(gru) -> dict:
+    """``Trainer.fit`` with multi_step=4 at full width, bf16, batch 16 (16
+    steps and 2 val batches an epoch), cudnn.deterministic: run A for 2
+    epochs, resumed with multi_step=1 for a third, against run B, 3 epochs
+    with multi_step=4, bit for bit; the GRU launches of every fit; one
+    replay's launches against the kernel names in its profile; the train
+    CLI with --multi-step 4."""
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.data.device_synthetic import (
+        DeviceResidentSynthetic)
+    from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from vae_gan_mark_tpu_torch.train.loop import Trainer
+
+    cfg = get_config("v2", compute_dtype="bfloat16", batch_size=BATCH,
+                     **{"scheduler.patience": 0})
+    steps = DRIVER_TRAIN_SAMPLES // BATCH
+    val_batches = DRIVER_VAL_SAMPLES // BATCH
+    train_data = DeviceResidentSynthetic(
+        SyntheticPatchDataset(cfg, DRIVER_TRAIN_SAMPLES, seed=0), BATCH,
+        steps)
+    val_data = DeviceResidentSynthetic(
+        SyntheticPatchDataset(cfg, DRIVER_VAL_SAMPLES, seed=1), BATCH,
+        val_batches, advance_per_epoch=False)
+    wd_a, wd_b = (os.path.join(RUNS_DIR, n) for n in ("multi_a", "multi_b"))
+
+    def fit(trainer, epochs, what):
+        runs = epochs - trainer.epoch
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        t = time.perf_counter()
+        trainer.fit(epochs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(forward=gru.KERNEL.launches,
+                        backward=gru.BACKWARD_KERNEL.launches)
+        expected = dict(forward=runs * (2 * steps + 2 * val_batches),
+                        backward=runs * 2 * steps)
+        check(launches == expected, f"{what}: GRU launches {launches}, "
+                                    f"expected {expected}")
+        rates = [r["train/images_per_sec"]
+                 for r in read_records(trainer.workdir)[-runs:]]
+        print(f"[graphs] {what}: fit({epochs}) in {seconds:.1f} s, GRU "
+              f"launches {launches} (2 + 2 a train step, 2 a val batch, "
+              f"replays included), train/images_per_sec "
+              f"{[round(r, 1) for r in rates]}", flush=True)
+        return dict(seconds=seconds, launches=launches, img_per_s=rates)
+
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    result = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        run_a = Trainer(cfg, train_data, val_data, wd_a, seed=0,
+                        multi_step=MULTI_K)
+        result["run_a"] = fit(run_a, 2, f"run A (multi_step={MULTI_K})")
+        del run_a
+        resumed = Trainer(cfg, train_data, val_data, wd_a, seed=0,
+                          multi_step=1)
+        result["resumed"] = fit(resumed, 3, "run A resumed with multi_step=1")
+        a_final = group_state_tensors(resumed.state)
+        del resumed
+        run_b = Trainer(cfg, train_data, val_data, wd_b, seed=0,
+                        multi_step=MULTI_K)
+        result["run_b"] = fit(run_b, 3, f"run B (multi_step={MULTI_K})")
+        b_final = state_tensors(run_b.state)
+        diff = max_abs_diff(a_final, b_final)
+        rec_a, rec_b = (read_records(wd)[-1] for wd in (wd_a, wd_b))
+        rec_same = all(rec_a[k] == rec_b[k] for k in rec_b
+                       if k not in UNTIMED)
+        print(f"[graphs] A (K={MULTI_K} 2 epochs, then K=1) against B (K="
+              f"{MULTI_K} 3 epochs): G, D, buffers and both Adams differ by "
+              f"{diff:.3e}, the epoch-3 records equal: {rec_same} (limit: "
+              f"bit for bit)", flush=True)
+        check(diff == 0.0 and rec_same, f"multi-step A against B: {diff}, "
+                                        f"records equal {rec_same}")
+        result["a_vs_b_max_abs_diff"] = diff
+        del a_final, b_final
+
+        # One replayed group, its counts against its profile's kernels.
+        batches = [run_b._put(b) for b in list(train_data(3))[:MULTI_K]]
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_b.state, _ = run_b.multi_train_step(
+                run_b.state, run_b.vgg, batches, 0, 1e-3)
+            torch.cuda.synchronize()
+        counted = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        traced = [sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and name in e.key)
+                  for name in ("gru_fwd_kernel", "gru_bwd_kernel")]
+        print(f"[graphs] one group of {MULTI_K} replays: counts "
+              f"{counted}, kernels in its profile {tuple(traced)}",
+              flush=True)
+        check(counted == tuple(traced) == (2 * MULTI_K, 2 * MULTI_K),
+              f"replay counts {counted} against profile {traced}")
+        result["profile_cross_check"] = dict(counted=counted, traced=traced)
+        del run_b, batches
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    try:
+        cli_dir = os.path.join(RUNS_DIR, "multi_cli")
+        run_cli("vae_gan_mark_tpu_torch.train", "--synthetic",
+                "--synthetic-samples", "64", "--batch-size", "16",
+                "--epochs", "1", "--multi-step", str(MULTI_K), "--workdir",
+                cli_dir)
+        result["cli"] = "exit 0"
+    finally:
+        shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return result
+
+
+# Phase 10: oldv at 448x64.
+def phase_oldv(gru, card: str) -> dict:
+    """oldv at full width: serving in bf16 and f32 (img/s, 2 GRU launches a
+    chunk, CUDA against CPU), 5 bf16 train steps (ms a step, 2 + 2 GRU
+    launches a step), one f32 step CUDA against CPU at B=2 with phase 7's
+    limits, and a profiled bf16 step by kernel class."""
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.serve import InferenceEngine
+    from vae_gan_mark_tpu_torch.train import build_train_step
+
+    cfgs = {name: get_config("oldv", compute_dtype=name)
+            for name in ("bfloat16", "float32")}
+    weights = train_weights(cfgs["float32"])
+    result = dict(serve={})
+    requests = make_requests(cfgs["float32"], BATCH, seed=31)
+    outs = {}
+    for name, cfg in cfgs.items():
+        engine = InferenceEngine(cfg, weights[0], batch_size=BATCH, seed=0,
+                                 device="cuda")
+        engine.generate(*requests)
+        torch.cuda.synchronize()
+        gru.KERNEL.launches = 0
+        outs[name] = engine.generate(*requests)
+        torch.cuda.synchronize()
+        launches = gru.KERNEL.launches
+        check(launches == 2, f"oldv {name} generate(16): {launches} GRU "
+                             f"launches, expected 2")
+        check_patches(outs[name], BATCH, cfg, f"oldv {name} generate(16)")
+        iters = 20
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.generate(*requests)
+        dt = time.perf_counter() - t0
+        result["serve"][name] = dict(img_per_s=iters * BATCH / dt,
+                                     batch_ms=dt / iters * 1e3,
+                                     launches=launches)
+        print(f"[oldv] serve {name} bs={BATCH}: {iters * BATCH / dt:.1f} "
+              f"img/s ({dt / iters * 1e3:.2f} ms a batch), {launches} GRU "
+              f"launches a chunk on {card}", flush=True)
+        del engine
+    cpu_out = InferenceEngine(cfgs["float32"], weights[0], batch_size=BATCH,
+                              seed=0, device="cpu").generate(*requests)
+    device_err = float(np.abs(cpu_out - outs["float32"]).max())
+    print(f"[oldv] serve CUDA against CPU, float32 (TF32 off): max abs err "
+          f"{device_err:.3e} (limit {DEVICE_ATOL})", flush=True)
+    check(device_err <= DEVICE_ATOL, f"oldv CUDA against CPU {device_err}")
+    result["serve"]["device_max_abs_err"] = device_err
+
+    cfg = cfgs["bfloat16"]
+    state, vgg = make_trainer(cfg, weights, "cuda")
+    step = build_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [train_batch(cfg, BATCH, 700 + i, "cuda")
+               for i in range(TRAIN_STEPS)]
+    state, _ = step(state, vgg, batches[0], gen, 1e-3)      # warm-up
+    torch.cuda.synchronize()
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, metrics = step(state, vgg, batch, gen, 1e-3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(launches == (2 * TRAIN_STEPS, 2 * TRAIN_STEPS),
+          f"oldv train: GRU launches {launches}, expected 2 + 2 a step")
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"oldv train: non-finite losses {losses}")
+    print(f"[oldv] train bf16 bs={BATCH}: {step_ms:.1f} ms a step "
+          f"({BATCH / step_ms * 1e3:.1f} img/s) over {TRAIN_STEPS} steps, GRU "
+          f"launches {launches}; last losses " + " ".join(
+              f"{k}={v:.4f}" for k, v in losses.items()), flush=True)
+    result["train"] = dict(step_ms=step_ms, launches=launches, losses=losses)
+    result["profile"] = profile_call(
+        lambda: (step(state, vgg, batches[0], gen, 1e-3),
+                 torch.cuda.synchronize()),
+        f"oldv bf16 train step bs={BATCH}", step_ms)
+    del state, vgg, batches
+    torch.cuda.empty_cache()
+    result["cuda_vs_cpu"] = compare_devices(cfgs["float32"], weights,
+                                            one_thread=False,
+                                            u_atol=OLDV_U_ATOL)
+    return result
+
+
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
     ("gru forward kernel", ("gru_fwd_kernel",)),
     ("gru backward kernel", ("gru_bwd_kernel",)),
@@ -1385,6 +1913,15 @@ def main() -> int:
     serve = phase_serve(gru, card)
     train = phase_train(gru, card)
     driver = phase_epoch_driver(gru, card, train["rates"])
+    t_new = time.perf_counter()
+    multi = phase_multi_step(gru, card)
+    multi_driver = phase_multi_step_driver(gru)
+    t_oldv = time.perf_counter()
+    oldv = phase_oldv(gru, card)
+    new_phases_s = dict(multi_step=t_oldv - t_new,
+                        oldv=time.perf_counter() - t_oldv)
+    print(f"[done] phase 9 took {new_phases_s['multi_step']:.1f} s, phase "
+          f"10 {new_phases_s['oldv']:.1f} s", flush=True)
 
     fwd_row, fwd_row_128 = (next(r for r in forward["rows"]
                                  if r["H"] == 256 and r["B"] == b)
@@ -1403,7 +1940,12 @@ def main() -> int:
                  train_bfloat16=train_launches["forward"],
                  train_float32=train["float32"]["launches"]["forward"],
                  epoch_driver_run_b=driver["run_b"]["launches"]["forward"],
-                 serve_from_checkpoint=driver["serve"]["launches"]),
+                 serve_from_checkpoint=driver["serve"]["launches"],
+                 multi_step_graph_8_steps=multi["launches_8_steps"][0],
+                 multi_step_run_b=multi_driver["run_b"]["launches"][
+                     "forward"],
+                 oldv_serve_chunk=oldv["serve"]["bfloat16"]["launches"],
+                 oldv_train=oldv["train"]["launches"][0]),
              max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
              directions_per_launch=fwd_row["directions_per_launch"],
              ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
@@ -1419,7 +1961,11 @@ def main() -> int:
              launches_by_path=dict(
                  train_bfloat16=train_launches["backward"],
                  train_float32=train["float32"]["launches"]["backward"],
-                 epoch_driver_run_b=driver["run_b"]["launches"]["backward"]),
+                 epoch_driver_run_b=driver["run_b"]["launches"]["backward"],
+                 multi_step_graph_8_steps=multi["launches_8_steps"][1],
+                 multi_step_run_b=multi_driver["run_b"]["launches"][
+                     "backward"],
+                 oldv_train=oldv["train"]["launches"][1]),
              max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
              directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
@@ -1444,7 +1990,10 @@ def main() -> int:
         json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
                        build=build, gru_forward=forward,
                        gru_backward=backward, conv=conv, serve=serve,
-                       train=train, epoch_driver=driver, kernels=kernels),
+                       train=train, epoch_driver=driver,
+                       multi_step=multi, multi_step_driver=multi_driver,
+                       oldv=oldv, new_phases_s=new_phases_s,
+                       kernels=kernels),
                   f, indent=1,
                   default=str)
     print(f"[done] phases took {seconds:.1f} s", flush=True)

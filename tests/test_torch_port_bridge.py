@@ -28,7 +28,9 @@ from vae_gan_mark_tpu_torch.utils.port_jax import (
 from torch_port_common import TINY, jax_tree_shapes_of
 
 CASES = {"v2_tiny": ("v2", TINY), "unet_tiny": ("unet", TINY),
-         "v2_full": ("v2", {})}
+         "v2_full": ("v2", {}),
+         "oldv_tiny": ("oldv", dict(TINY, enc_chans=(8, 16, 24))),
+         "oldv_full": ("oldv", {})}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -54,7 +56,7 @@ def test_state_dict_keys_and_shapes_match_port(case):
         assert value.dtype == torch.float32, key
 
 
-@pytest.mark.parametrize("case", ["v2_tiny", "unet_tiny"])
+@pytest.mark.parametrize("case", ["v2_tiny", "unet_tiny", "oldv_tiny"])
 def test_round_trip_through_port_v2_generator(case):
     variant, overrides = CASES[case]
     cfg = get_config(variant, **overrides)
@@ -91,7 +93,7 @@ def test_bridge_rejects_wrong_shapes_and_variants():
     with pytest.raises(ValueError, match="Conv_0"):
         state_dict_from_jax(params, stats, cfg)
     with pytest.raises(NotImplementedError):
-        random_jax_tree(get_config("oldv"), seed=0)
+        random_jax_tree(get_config("vanilla"), seed=0)
 
 
 def _disc_trees(seed):

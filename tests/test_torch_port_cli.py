@@ -30,7 +30,7 @@ from vae_gan_mark_tpu_torch.serve import InferenceEngine
 from vae_gan_mark_tpu_torch.serve import __main__ as serve_cli
 from vae_gan_mark_tpu_torch.train.checkpoint import load_state_file
 
-from torch_port_common import TINY, Pair
+from torch_port_common import TINY, TORCH_THREADS, Pair
 
 ROOT = Path(__file__).resolve().parent.parent
 SETS = [arg for key, value in (
@@ -45,6 +45,7 @@ TRAIN_ARGS = ["--variant", "v2", "--synthetic", "--synthetic-samples", "16",
 def run_train_cli(workdir, epochs):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = str(TORCH_THREADS)
     proc = subprocess.run(
         [sys.executable, "-m", "vae_gan_mark_tpu_torch.train", *TRAIN_ARGS,
          "--device", "cpu", "--epochs", str(epochs), "--workdir",
@@ -121,15 +122,19 @@ def test_eval_cli_prints_one_json_line(trained, capsys, extra):
     assert all(np.isfinite(v) for v in result.values())
 
 
-@pytest.mark.parametrize("variant", ["vanilla", "lr_sh", "oldv"])
-def test_unported_variants_are_refused(variant, tmp_path):
+# oldv is ported; with the sbert text path it is refused.
+@pytest.mark.parametrize("variant,overrides", [
+    ("vanilla", []), ("lr_sh", []), ("oldv", ["--set", "text_encoder=sbert"])],
+    ids=["vanilla", "lr_sh", "oldv"])
+def test_unported_variants_are_refused(variant, overrides, tmp_path):
     for main, extra in ((cli.main, ["--synthetic"]),
                         (eval_cli.main, ["--synthetic"]),
                         (serve_cli.main, ["--image", "i", "--mask", "m",
                                           "--quad", "0", "--text", "t",
                                           "--out", "o"])):
         with pytest.raises(SystemExit, match="not ported to PyTorch yet"):
-            main(["--variant", variant, "--workdir", str(tmp_path)] + extra)
+            main(["--variant", variant, "--workdir", str(tmp_path)]
+                 + overrides + extra)
 
 
 def test_clis_default_to_the_card(trained, tmp_path):

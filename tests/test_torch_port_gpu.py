@@ -235,20 +235,24 @@ def test_train_step_on_card_matches_cpu(card):
                                    atol=max(1e-3 * scale, floor))
 
 
-def trainer_on(card, workdir, steps=3):
+def trainer_on(card, workdir, steps=3, val_batches=1, multi_step=1,
+               **overrides):
     """A tiny v2 Trainer on the card over device-resident synthetic data:
-    ``steps`` train batches and one val batch of 4 an epoch."""
+    ``steps`` train batches and ``val_batches`` val batches of 4 an
+    epoch."""
     from vae_gan_mark_tpu_torch.data.device_synthetic import (
         DeviceResidentSynthetic)
     from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
     from vae_gan_mark_tpu_torch.train.loop import Trainer
 
-    cfg = get_config("v2", batch_size=4, **TINY)
+    cfg = get_config("v2", batch_size=4, **{**TINY, **overrides})
     train = DeviceResidentSynthetic(SyntheticPatchDataset(cfg, 4 * steps), 4,
                                     steps, device=card)
-    val = DeviceResidentSynthetic(SyntheticPatchDataset(cfg, 4, seed=1), 4,
-                                  1, advance_per_epoch=False, device=card)
-    return Trainer(cfg, train, val, str(workdir), seed=0, device=card)
+    val = DeviceResidentSynthetic(
+        SyntheticPatchDataset(cfg, 4 * val_batches, seed=1), 4, val_batches,
+        advance_per_epoch=False, device=card)
+    return Trainer(cfg, train, val, str(workdir), seed=0, device=card,
+                   multi_step=multi_step)
 
 
 def test_trainer_epoch_on_card_launches_the_gru_kernels(card, tmp_path):
@@ -305,3 +309,151 @@ def test_from_checkpoint_on_card_matches_the_trained_generator(card,
     torch.cuda.synchronize()
     assert gru.KERNEL.launches == 2 * 2              # 2 chunks of 4
     assert np.array_equal(out, reference.generate(ru, mask, texts))
+
+
+def test_gru_kernels_captured_in_a_graph_replay_as_eager(card):
+    """Both BiGRU kernels (a forward and a backward launch, 8-CTA clusters
+    launched with ``cudaLaunchKernelEx``) captured in one CUDA graph: a
+    replay on new inputs equals eager launches bit for bit, and the
+    capture recorded one launch of each."""
+    from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
+
+    def inputs(seed):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        return {"ru": torch.randn(60, 16, 3 * 256, device=card,
+                                  generator=gen),
+                "en": torch.randn(60, 16, 3 * 256, device=card,
+                                  generator=gen),
+                "mask": torch.randn(60, 16, 2 * 256, device=card,
+                                    generator=gen)}
+
+    gen = torch.Generator(device=card).manual_seed(9)
+    weights = [((torch.rand(3 * 256, 256, device=card, generator=gen) - 0.5)
+                / 16).requires_grad_() for _ in range(2)]
+    biases = [(torch.rand(768, device=card, generator=gen) - 0.5
+               ).requires_grad_() for _ in range(2)]
+
+    def fwd_bwd(batch, generator=None, kl=None):
+        x_f = batch["ru"].clone().requires_grad_()
+        x_b = batch["en"].clone().requires_grad_()
+        outs = gru.bigru_recurrence_grad(x_f, weights[0], biases[0],
+                                         x_b, weights[1], biases[1])
+        grads = torch.autograd.grad(
+            outs, [x_f, x_b, *weights, *biases],
+            [batch["mask"][..., :256].contiguous(),
+             batch["mask"][..., 256:].contiguous()])
+        return [*outs, *grads]
+
+    warm = inputs(1)
+    fwd_bwd(warm)
+    gru.KERNEL.prepare(16, 256)
+    gru.BACKWARD_KERNEL.prepare(16, 256)
+    graph = CapturedStep(fwd_bwd, warm)
+    assert graph.launches == {gru.KERNEL: 1, gru.BACKWARD_KERNEL: 1}
+    for seed in (2, 3):
+        batch = inputs(seed)
+        before = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        got = [t.clone() for t in graph.replay(batch, 0, 0.0)]
+        assert (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1)
+        for a, b in zip(got, fwd_bwd(batch)):
+            assert torch.equal(a, b)
+
+
+def test_reseeded_graph_generator_draws_like_a_fresh_one(card):
+    """A replay after ``manual_seed(s)`` draws what an eager run draws from
+    a fresh generator seeded with s: the reparameterisation noise
+    (``randn``) and a dropout mask (``bernoulli_``)."""
+    from vae_gan_mark_tpu_torch.ops.rnn import dropout_mask
+    from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
+
+    def draws(batch, generator, kl=None):
+        noise = torch.randn(batch["ru"].shape, generator=generator,
+                            device=card)
+        return noise, dropout_mask(batch["ru"], 0.1, generator)
+
+    batch = {"ru": torch.zeros(8, 1, 1, 128, device=card)}
+    draws(batch, torch.Generator(device=card).manual_seed(0))   # warm-up
+    graph = CapturedStep(draws, batch)
+    for seed in (11, 12, 11):
+        got = [t.clone() for t in graph.replay(batch, seed, 0.0)]
+        ref = draws(batch, torch.Generator(device=card).manual_seed(seed))
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_trainer_multi_step_on_card_equals_single_steps(card, tmp_path):
+    """``multi_step=4`` over 2 epochs of 8 train batches and 4 val batches
+    (the first group of each kind eager, the rest graph replays) against
+    ``multi_step=1``, with cuDNN's deterministic algorithms: parameters,
+    buffers, both Adams and the records equal bit for bit; 2 + 2 GRU
+    launches per train step and 2 per val batch, replays included.
+
+    In bfloat16: there the FiLM text map's gradient reaches the bilinear
+    upsample's backward as bf16 values, whose float32 atomic sums are exact
+    in any order. In float32 they are not (``chip_smoke.py`` phase 9
+    prints the spread of that backward run twice), so float32 steps on the
+    card are not reproducible bit for bit even eagerly."""
+    import json
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states, records = {}, {}
+        for k in (1, 4):
+            trainer = trainer_on(card, tmp_path / f"k{k}", steps=8,
+                                 val_batches=4, multi_step=k,
+                                 compute_dtype="bfloat16")
+            gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+            trainer.fit(2)
+            torch.cuda.synchronize()
+            assert (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches) == (
+                2 * (2 * 8 + 2 * 4), 2 * 2 * 8)
+            state = trainer.state
+            states[k] = {**{f"G.{n}": v for n, v in
+                            state.generator.state_dict().items()},
+                         **{f"D.{n}": v for n, v in
+                            state.discriminator.state_dict().items()}}
+            for name, opt in (("g", state.opt_g), ("d", state.opt_d)):
+                for i, entry in enumerate(opt.state.values()):
+                    states[k].update({f"{name}{i}.{n}": v
+                                      for n, v in entry.items()})
+            with open(tmp_path / f"k{k}" / "v2.metrics.jsonl") as f:
+                records[k] = [{n: v for n, v in json.loads(line).items()
+                               if n not in ("time", "train/images_per_sec")}
+                              for line in f]
+        assert states[1].keys() == states[4].keys()
+        for key in states[1]:
+            assert torch.equal(states[1][key], states[4][key]), key
+        assert records[1] == records[4]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def test_oldv_generator_on_card_launches_the_gru_twice(card):
+    """The oldv generator (3 levels, gated skips, strip-factored FiLM over
+    a height-4 text map) on the card: one GRU forward launch per BiGRU
+    layer, and the CPU's output within 1e-4 (float32, TF32 off)."""
+    from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+
+    cfg = get_config("oldv", **{**TINY, "enc_chans": (8, 16, 24)})
+    sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    rng = np.random.default_rng(4)
+    args = (rng.uniform(0, 1, (3, 32, 64, 3)).astype(np.float32),
+            (rng.uniform(0, 1, (3, 32, 64, 1)) > 0.5).astype(np.float32),
+            rng.integers(1, cfg.vocab_size, (3, cfg.max_text_len)),
+            rng.normal(0, 1, (3, 1, 1, cfg.z_ch)).astype(np.float32))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = VAEGANGenerator(cfg)
+        model.load_state_dict(sd)
+        model.to(device).eval()
+        before = gru.KERNEL.launches
+        with torch.no_grad():
+            outs[device] = [t.cpu() for t in model(
+                *(torch.from_numpy(a).to(device) for a in args[:2]),
+                torch.from_numpy(args[2]).to(device),
+                eps=torch.from_numpy(args[3]).to(device))]
+        if device == "cuda":
+            assert gru.KERNEL.launches - before == 2
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

@@ -216,10 +216,13 @@ def test_vgg_and_perceptual_loss_match():
     assert all(p.grad is None for p in vgg.parameters())
 
 
-@pytest.mark.parametrize("variant", ["vanilla", "lr_sh", "oldv"])
-def test_other_variants_are_not_ported(variant):
+# oldv is ported; its generator with the sbert text path is not.
+@pytest.mark.parametrize("variant,overrides", [
+    ("vanilla", {}), ("lr_sh", {}), ("oldv", {"text_encoder": "sbert"})],
+    ids=["vanilla", "lr_sh", "oldv"])
+def test_other_variants_are_not_ported(variant, overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VAEGANGenerator(get_config(variant))
+        VAEGANGenerator(get_config(variant, **overrides))
 
 
 def test_precision_scope_turns_tf32_off_and_restores():

@@ -15,6 +15,13 @@ from vae_gan_mark_tpu_torch.models import VAEGANGenerator as PortGenerator
 from vae_gan_mark_tpu_torch.utils.port_jax import (
     random_jax_tree, state_dict_from_jax)
 
+# The suite runs several pytest workers side by side on one CPU. torch's
+# default of one thread per core has their tiny ops wait on each other's
+# threads (a tiny Trainer epoch runs faster on 1-2 threads than on 8, even
+# alone), so each worker that imports this module keeps two.
+TORCH_THREADS = 2
+torch.set_num_threads(TORCH_THREADS)
+
 # The tiny geometry of tests/test_train_fast.py.
 TINY = dict(patch_h=32, patch_w=64, compute_dtype="float32",
             enc_chans=(8, 16, 24, 32), bottleneck_ch=48, z_ch=16,

@@ -9,10 +9,12 @@ only from the environment (``WANDB_API_KEY``). The run uses the card unless
 ``--device cpu`` is given, and fails without one. Running the same command
 again resumes from the workdir's ``last_checkpoint``.
 
-The port's generator builds the char-conditioned U-Net variants (v2, unet);
-vanilla, lr_sh and oldv are refused. The JAX flags that wait for later work
-are not here: ``--loader device``, ``--multi-step``, ``--no-mesh`` and the
-multi-process flags.
+The port's generator builds the char-conditioned U-Net variants (v2, unet,
+oldv); a config with the plain generator or the sbert text path (vanilla,
+lr_sh) is refused. ``--multi-step K`` runs K train steps (and K val
+batches) per call, on the card as CUDA-graph replays of one step. The JAX
+flags that wait for later work are not here: ``--loader device``,
+``--no-mesh`` and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -23,20 +25,19 @@ import dataclasses
 from vae_gan_mark_tpu_torch.config import VARIANTS, get_config
 
 NOT_PORTED = {
-    "vanilla": "the plain generator and the sbert text path",
-    "lr_sh": "the plain generator and the sbert text path",
-    "oldv": "the 3-level generator with gated skips and the char_posenc "
-            "text encoder",
+    ("generator", "plain"): "the plain generator",
+    ("text_encoder", "sbert"): "the sbert text path",
 }
 
 
-def check_variant(variant: str) -> None:
-    """Exit with a message for a variant the port does not build yet."""
-    if variant in NOT_PORTED:
-        raise SystemExit(
-            f"variant {variant!r} is not ported to PyTorch yet "
-            f"({NOT_PORTED[variant]}; ROADMAP.md, 'Modules to port'); the "
-            f"port trains, serves and evaluates v2 and unet")
+def check_variant(cfg) -> None:
+    """Exit with a message for a config the port does not build yet."""
+    for (field, value), what in NOT_PORTED.items():
+        if getattr(cfg, field) == value:
+            raise SystemExit(
+                f"variant {cfg.name!r} with {field}={value!r} is not ported "
+                f"to PyTorch yet ({what}; ROADMAP.md, 'Modules to port'); "
+                f"the port trains, serves and evaluates v2, unet and oldv")
 
 
 def add_device_flag(p: argparse.ArgumentParser) -> None:
@@ -92,6 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override a VariantConfig field")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--multi-step", type=int, default=1,
+                   help="train steps (and val batches) per call; on the card "
+                        "K > 1 replays a CUDA graph of one step K times "
+                        "(the JAX package's scanned multi-step dispatch)")
     add_device_flag(p)
     return p
 
@@ -201,13 +206,13 @@ def main(argv=None):
     from vae_gan_mark_tpu_torch.train.loop import Trainer
 
     args = build_parser().parse_args(argv)
-    check_variant(args.variant)
     overrides = parse_overrides(VariantConfig, args.set)
     if args.epochs is not None:
         overrides["epochs"] = args.epochs
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
     cfg = get_config(args.variant, **overrides)
+    check_variant(cfg)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")
@@ -221,7 +226,8 @@ def main(argv=None):
 
     trainer = Trainer(cfg, train_data, val_data, workdir=args.workdir,
                       seed=args.seed, device=args.device,
-                      profile_dir=args.profile_dir)
+                      profile_dir=args.profile_dir,
+                      multi_step=args.multi_step)
     best = trainer.fit()
     print(f"done; best val recon: {best:.4f}")
     trainer.logger.finish()

@@ -102,11 +102,11 @@ def main(argv=None):
         batch_to_device, build_eval_step)
 
     args = build_parser().parse_args(argv)
-    check_variant(args.variant)
     overrides = parse_overrides(VariantConfig, args.set)
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
     cfg = get_config(args.variant, **overrides)
+    check_variant(cfg)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "

@@ -1,14 +1,17 @@
-"""U-Net-style decoder with SpatialFiLM at every stage (v2) or without it
-(unet), NCHW.
+"""U-Net-style decoder with SpatialFiLM at every stage (v2, oldv) or without
+it (unet), and with oldv's gated skips, NCHW.
 
 Submodule names follow the reference's state-dict keys (``bottleneck_proc``,
 ``up_tconv{n}``, ``spatial_film{n}``, ``conv_block{n}``,
-``final_image_conv``); stage n = 1 is the deepest.
+``final_image_conv``; ``skip_gates.{i}``, where i = 0 is the deepest);
+stage n = 1 is the deepest.
 
 Bottleneck: z is broadcast across the latent width, the text map is resized
-to (1, latent_w) unless it already has that shape (it has at v2), both are
-concatenated channel-wise, and a ConvTranspose with kernel (latent_h, 1)
-lifts the (1, latent_w) strip to the full latent grid.
+to (1, latent_w) unless it already has that shape (it has at v2; oldv's
+height-4 map of W/16 columns goes to 1 row of W/8), both are concatenated
+channel-wise, and a ConvTranspose with kernel (latent_h, 1) lifts the
+(1, latent_w) strip to the full latent grid. FiLM takes the text map as it
+is at every stage.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.convblocks import (
     Conv2d, DoubleConvBlock, TConv, TConvBNRelu)
-from vae_gan_mark_tpu_torch.ops.film import SpatialFiLM
+from vae_gan_mark_tpu_torch.ops.film import GatedSkip, SpatialFiLM
 from vae_gan_mark_tpu_torch.ops.resize import interpolate_bilinear
 
 
@@ -32,11 +35,15 @@ class UNetStyleDecoder(nn.Module):
     def __init__(self, latent_h: int, latent_w: int, z_ch: int, text_ch: int,
                  skip_chans: Sequence[int], bottleneck_ch: int = 1024,
                  out_ch: int = 3, use_film: bool = True,
-                 fast_film: bool = True, dtype: torch.dtype = torch.float32):
+                 gated_skips: bool = False, fast_film: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.latent_w = latent_w
         self.num_levels = len(skip_chans)
         self.use_film = use_film
+        self.skip_gates = nn.ModuleList(
+            [GatedSkip(c) for c in reversed(skip_chans)]) if gated_skips \
+            else None
         self.bottleneck_proc = TConvBNRelu(
             z_ch + text_ch, bottleneck_ch, (latent_h, 1), dtype=dtype)
         prev = bottleneck_ch
@@ -62,6 +69,8 @@ class UNetStyleDecoder(nn.Module):
             n = i + 1
             skip = skips[self.num_levels - 1 - i]          # deep -> shallow
             x = getattr(self, f"up_tconv{n}")(x)
+            if self.skip_gates is not None:
+                skip = self.skip_gates[i](skip)
             x = torch.cat([x, skip.to(x.dtype)], dim=1)
             if self.use_film:
                 x = getattr(self, f"spatial_film{n}")(x, text_map)

@@ -1,5 +1,6 @@
-"""Top-level VAE-GAN generator for the char-conditioned U-Net variants (v2,
-and unet without FiLM).
+"""Top-level VAE-GAN generator for the char-conditioned U-Net variants: v2,
+unet without FiLM, and oldv (3 levels, gated skips, a height-4 text map from
+``CharTextEncoderPosEnc``).
 
     model(image, mask, tokens, eps) -> (recon, mu, logvar)
 
@@ -12,6 +13,12 @@ otherwise it is drawn from ``generator``. In train mode (``model.train()``)
 BatchNorm uses batch statistics and advances its running statistics, and
 the BiGRU's inter-layer dropout draws from ``generator`` as well.
 
+With ``cfg.remat_encoder`` the encoder's activations are not kept for the
+backward: ``torch.utils.checkpoint`` runs the encoder again there, as the
+JAX package's ``nn.remat`` does. The recompute leaves BatchNorm's running
+statistics alone (``ops/norms.py:running_stats_frozen``), so they move once
+per forward with remat as without it.
+
 Submodule names follow the reference's state-dict keys
 (``style_vae_encoder_module``, ``char_text_encoder_module``,
 ``image_vae_decoder_module``), so ``utils/port_jax.py`` and the JAX
@@ -20,24 +27,32 @@ package's ``port_v2_generator`` convert between the two.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.models.decoders import UNetStyleDecoder
 from vae_gan_mark_tpu_torch.models.encoders import UNetEncoder
-from vae_gan_mark_tpu_torch.models.text_encoders import CharTextEncoder
+from vae_gan_mark_tpu_torch.models.text_encoders import (
+    CharTextEncoder, CharTextEncoderPosEnc)
+from vae_gan_mark_tpu_torch.ops.norms import running_stats_frozen
 from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
 from vae_gan_mark_tpu_torch.ops.sampling import reparameterize
 
 _NOT_PORTED = {
     "plain": "ROADMAP 'Modules to port': remaining variants (vanilla, "
              "lr_sh: PlainEncoder, PlainDecoder, SbertProjector)",
-    "film3": "ROADMAP 'Modules to port': remaining variants (oldv: "
-             "CharTextEncoderPosEnc, GatedSkip, strip-factored FiLM)",
 }
+
+
+def _recompute_contexts():
+    """``checkpoint``'s context_fn: nothing around the first forward; the
+    recompute leaves the running statistics alone."""
+    return contextlib.nullcontext(), running_stats_frozen()
 
 
 class VAEGANGenerator(nn.Module):
@@ -47,7 +62,7 @@ class VAEGANGenerator(nn.Module):
             raise NotImplementedError(
                 f"generator {cfg.generator!r} is not ported yet: "
                 f"{_NOT_PORTED[cfg.generator]}")
-        if cfg.text_encoder != "char":
+        if cfg.text_encoder not in ("char", "char_posenc"):
             raise NotImplementedError(
                 f"text_encoder {cfg.text_encoder!r} is not ported yet: "
                 "ROADMAP 'Modules to port': remaining variants")
@@ -58,22 +73,40 @@ class VAEGANGenerator(nn.Module):
         self.style_vae_encoder_module = UNetEncoder(
             cfg.in_ch, cfg.enc_chans, cfg.bottleneck_ch, cfg.z_ch,
             (cfg.latent_h, cfg.latent_w), dtype=dt)
-        self.char_text_encoder_module = CharTextEncoder(
-            cfg.vocab_size, cfg.text_feature_width, cfg.char_emb_dim,
-            cfg.char_rnn_hidden, cfg.char_rnn_layers, cfg.char_rnn_dropout,
-            dtype=dt)
+        text_args = (cfg.vocab_size, cfg.text_feature_width,
+                     cfg.char_emb_dim, cfg.char_rnn_hidden,
+                     cfg.char_rnn_layers, cfg.char_rnn_dropout)
+        if cfg.text_encoder == "char":
+            self.char_text_encoder_module = CharTextEncoder(*text_args,
+                                                            dtype=dt)
+        else:
+            self.char_text_encoder_module = CharTextEncoderPosEnc(
+                *text_args, out_height=cfg.text_feature_height, dtype=dt)
         self.image_vae_decoder_module = UNetStyleDecoder(
             cfg.latent_h, cfg.latent_w, cfg.z_ch, text_ch, cfg.enc_chans,
-            cfg.bottleneck_ch, cfg.out_ch, use_film=cfg.generator == "film4",
+            cfg.bottleneck_ch, cfg.out_ch,
+            use_film=cfg.generator in ("film4", "film3"),
+            gated_skips=cfg.generator == "film3",
             fast_film=cfg.fast_film, dtype=dt)
+
+    def _encode(self, x: torch.Tensor):
+        with precision_scope(self.dtype):
+            return self.style_vae_encoder_module(x)
 
     def forward(self, image: torch.Tensor, mask: torch.Tensor,
                 tokens: torch.Tensor, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         with precision_scope(self.dtype):
             x = torch.cat([image, mask], dim=-1).permute(0, 3, 1, 2)
-            mu, logvar, skips = self.style_vae_encoder_module(
-                x.to(self.dtype))
+            x = x.to(self.dtype)
+            if self.cfg.remat_encoder and torch.is_grad_enabled():
+                # The encoder draws no noise, so no RNG state is kept.
+                mu, logvar, skips = checkpoint(
+                    self._encode, x, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=_recompute_contexts)
+            else:
+                mu, logvar, skips = self._encode(x)
             mu32, logvar32 = mu.float(), logvar.float()
             if eps is not None:
                 eps = eps.permute(0, 3, 1, 2)              # NHWC -> NCHW

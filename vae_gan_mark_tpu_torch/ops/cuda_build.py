@@ -15,6 +15,10 @@ code to its message.
   functions' signatures, launches them, raises when a launch fails and
   counts the launches that succeeded; ``query`` calls a function that
   launches nothing and returns an int through its last argument.
+* ``launch_counts()`` / ``add_launches()`` read and move every kernel's
+  count at once: a CUDA graph (``train/graphs.py``) records what its
+  capture launched and adds that at each replay, since a replay runs no
+  Python.
 
 Importing this module builds nothing.
 """
@@ -97,12 +101,27 @@ def build_all(sources: Iterable[Path]) -> Dict[Path, Tuple[Path, str]]:
     return results
 
 
+_KERNELS: List["CudaKernel"] = []
+
+
+def launch_counts() -> Dict["CudaKernel", int]:
+    """Every kernel object's launch count."""
+    return {k: k.launches for k in _KERNELS}
+
+
+def add_launches(counts: Dict["CudaKernel", int]) -> None:
+    """Add ``counts[k]`` to kernel ``k``'s launch count, for each ``k``."""
+    for kernel, n in counts.items():
+        kernel.launches += n
+
+
 class CudaKernel:
     """One kernel library: its source under ``csrc/``, the C functions it
     exports with their ``ctypes`` argument types, and a launch count."""
 
     def __init__(self, source_name: str, functions: Dict[str, List],
                  error_function: str):
+        _KERNELS.append(self)
         self.source = CSRC / source_name
         self.functions = functions
         self.error_function = error_function

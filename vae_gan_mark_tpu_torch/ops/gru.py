@@ -23,7 +23,8 @@ direction) and ``BiGRURecurrence`` (both) join forward and backward as
   ``csrc/gru_bwd.cu`` (each one launch for one or both directions) or
   raises. They are compiled with ``nvcc`` at first use
   (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
-  (forward) or ``BACKWARD_KERNEL.launches`` (backward). Around the backward
+  (forward) or ``BACKWARD_KERNEL.launches`` (backward); ``prepare`` does
+  a first launch's host work ahead of a CUDA graph capture. Around the backward
   kernel two products per direction without a sequential dependence go to
   ``torch.matmul``: the gate pre-activations of every step, recomputed from
   the saved outputs before it, and dW_hh after it.
@@ -99,6 +100,14 @@ class CudaGRU(CudaKernel):
         return dict(tile_rows=rows, clusters=clusters,
                     max_active_clusters=fit, waves=-(-clusters // fit))
 
+    def prepare(self, batch: int, hidden: int) -> None:
+        """The host work of a first launch of both directions at ``batch``
+        and ``hidden``, done now: the library's load, the shared-memory
+        attribute and the occupancy query that picks the tile rows. A CUDA
+        graph capture calls this first, so that a launch it records only
+        launches."""
+        self.plan(2, batch, hidden)
+
 
 class CudaGRUBackward(CudaKernel):
     """The backward kernel, ``csrc/gru_bwd.cu``: the sequential part of the
@@ -144,6 +153,13 @@ class CudaGRUBackward(CudaKernel):
         how many 8-CTA clusters the card holds at once. A launch needs one
         per (direction, 16-row batch tile); beyond that it runs in waves."""
         return self.query("gru_backward_max_clusters", hidden)
+
+    def prepare(self, batch: int, hidden: int) -> None:
+        """The host work of a first launch at ``hidden``, done now: the
+        library's load and the shared-memory attribute (the launch's shape
+        does not depend on ``batch``)."""
+        del batch
+        self.max_active_clusters(hidden)
 
 
 KERNEL = CudaGRU()

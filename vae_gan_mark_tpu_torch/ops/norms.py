@@ -6,7 +6,11 @@ the JAX package implements them (``ops/norms.py``).
   statistics by ``running = 0.9 running + 0.1 batch``, the variance there
   unbiased (n / (n - 1)). Eval mode normalises with the running statistics.
   Statistics are float32 whatever the input type; the output is the compute
-  dtype. Parameters and buffers carry ``BatchNorm2d``'s names.
+  dtype. Parameters and buffers carry ``BatchNorm2d``'s names. Inside
+  ``running_stats_frozen()`` a train-mode forward normalises as usual and
+  leaves the running statistics alone: the encoder's recompute under
+  ``remat_encoder`` (``models/vaegan.py``) runs there, so the statistics
+  move once per step, as under flax's ``nn.remat``.
 * ``InstanceNorm``: ``InstanceNorm2d(affine=True)``, per sample and channel
   over (H, W), biased variance, no running statistics.
 * ``spectral_normalize`` / ``SpectralConv``: ``torch.nn.utils.spectral_norm``
@@ -18,12 +22,31 @@ the JAX package implements them (``ops/norms.py``).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vae_gan_mark_tpu_torch.ops.constants import device_constant
+
+# Per thread: a recompute runs in the thread that runs the backward.
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Train-mode ``BatchNorm`` forwards in this thread leave their running
+    statistics as they are."""
+    saved = getattr(_FROZEN, "active", False)
+    _FROZEN.active = True
+    try:
+        yield
+    finally:
+        _FROZEN.active = saved
 
 
 def _channel_view(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -54,11 +77,12 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             mean, var, n = _batch_stats(xf, row_weights)
-            with torch.no_grad():
-                m = self.MOMENTUM
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(
-                    m * var * (n / max(n - 1, 1)))
+            if not getattr(_FROZEN, "active", False):
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    self.running_mean.mul_(1.0 - m).add_(m * mean)
+                    self.running_var.mul_(1.0 - m).add_(
+                        m * var * (n / max(n - 1, 1)))
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -74,7 +98,10 @@ def _batch_stats(xf: torch.Tensor, row_weights: Optional[Sequence[float]]
     if row_weights is None:
         var, mean = torch.var_mean(xf, dim=dims, unbiased=False)
         return mean, var, xf.numel() // xf.shape[1]
-    w = xf.new_tensor(row_weights).view(1, 1, -1, *([1] * (xf.dim() - 3)))
+    shape = (1, 1, len(row_weights)) + (1,) * (xf.dim() - 3)
+    w = device_constant(
+        ("batch_norm_row_weights", tuple(row_weights), shape), xf.device,
+        lambda: torch.tensor(row_weights, dtype=torch.float32).view(shape))
     n = round(xf.numel() // (xf.shape[1] * xf.shape[2]) * sum(row_weights))
     mean = (xf * w).sum(dims) / n
     var = ((xf - _channel_view(xf, mean)).square() * w).sum(dims) / n

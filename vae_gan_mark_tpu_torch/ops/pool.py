@@ -3,7 +3,7 @@
 ``nn.AdaptiveAvgPool1d(out)`` averages input[floor(i*L/out) : ceil((i+1)*L/out)]
 per output bin (60 characters -> W/16 = 28 columns at v2). As in the JAX
 package the pool is one float32 product with a fixed (L, out) averaging
-matrix.
+matrix, built once per device (``ops/constants.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from vae_gan_mark_tpu_torch.ops.constants import device_constant
 
 
 def _adaptive_avg_matrix(in_len: int, out_len: int) -> np.ndarray:
@@ -26,7 +28,9 @@ def _adaptive_avg_matrix(in_len: int, out_len: int) -> np.ndarray:
 def adaptive_avg_pool1d(x: torch.Tensor, out_len: int) -> torch.Tensor:
     """x: (..., L, C) pooled over L to (..., out_len, C), channel-last like
     the JAX function: out[b, o, c] = sum_l M[l, o] * x[b, l, c]."""
-    m = torch.from_numpy(_adaptive_avg_matrix(x.shape[-2], out_len)).to(
-        x.device)
+    in_len = x.shape[-2]
+    m = device_constant(
+        ("adaptive_avg_pool1d", in_len, out_len), x.device,
+        lambda: torch.from_numpy(_adaptive_avg_matrix(in_len, out_len)))
     y = torch.einsum("...lc,lo->...oc", x.float(), m)
     return y.to(x.dtype)

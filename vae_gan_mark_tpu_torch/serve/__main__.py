@@ -54,9 +54,9 @@ def main(argv=None):
     from vae_gan_mark_tpu_torch.serve.engine import InferenceEngine
 
     args = build_parser().parse_args(argv)
-    check_variant(args.variant)
     cfg = get_config(args.variant,
                      **parse_overrides(VariantConfig, args.set))
+    check_variant(cfg)
     quad = np.asarray([float(x) for x in args.quad.split(",")],
                       np.float32).reshape(4, 2)
     image = np.asarray(Image.open(args.image).convert("RGB"))

@@ -7,7 +7,8 @@ A checkpoint is a directory ``root/name`` (``last_checkpoint``,
 * ``state.pt``: ``{"generator", "discriminator"}`` (the modules'
   ``state_dict``s, BatchNorm running statistics and spectral ``u``
   included), ``{"opt_g", "opt_d"}`` (both Adams' ``state_dict``s) and
-  ``step``;
+  ``step``; a checkpoint of the card's capturable Adams loads into the
+  CPU's plain ones and back (``train/state.py:load_optimizer_state``);
 * ``host_meta.json``: the JAX package's keys ``epoch``, ``best_val``,
   ``sched_g``, ``sched_d`` (the plateau states), ``lr_g`` and ``lr_d``.
 
@@ -27,7 +28,8 @@ from typing import Dict, Optional
 import torch
 
 from vae_gan_mark_tpu_torch.train.schedule import PlateauState
-from vae_gan_mark_tpu_torch.train.state import TrainState
+from vae_gan_mark_tpu_torch.train.state import (
+    TrainState, load_optimizer_state)
 
 STATE_FILE = "state.pt"
 META_FILE = "host_meta.json"
@@ -84,11 +86,7 @@ def restore_checkpoint(root: str, name: str,
     state.generator.load_state_dict(saved["generator"])
     state.discriminator.load_state_dict(saved["discriminator"])
     for opt, key in ((state.opt_g, "opt_g"), (state.opt_d, "opt_d")):
-        opt.load_state_dict(saved[key])
-        # A fresh Adam keeps its step count on the CPU (no sync per update);
-        # loading left it where map_location put it.
-        for param_state in opt.state.values():
-            param_state["step"] = param_state["step"].cpu()
+        load_optimizer_state(opt, saved[key])
     state.step = int(saved["step"])
     with open(os.path.join(root, name, META_FILE)) as f:
         meta = json.load(f)

@@ -14,6 +14,16 @@
 * the metric record with the reference's schema (``train/*``, ``val/*``,
   ``learning_rate/*``); a non-finite epoch loss raises (the NaN guard).
 
+With ``multi_step=K > 1`` the train batches go in groups of K through
+``build_multi_train_step`` and the val batches in groups of K through
+``build_multi_eval_step`` (on the card: CUDA-graph replays of one step,
+``train/graphs.py``), as the JAX Trainer's ``multi_step`` does: K steps
+equal K single steps, a trailing group of fewer than K batches runs as
+single steps, val batches keep their global indices, and the val triplets
+come from val batch 0 only. The epoch's metric sums are the single-step
+driver's bit for bit (each group adds its K steps' metrics, K times their
+mean, one by one).
+
 A new ``Trainer`` on a workdir with a ``last_checkpoint`` resumes after its
 epoch. Randomness does not live in the state: train step ``s`` draws its
 noise and dropout from a ``torch.Generator`` seeded from ``(seed, s)`` and
@@ -52,21 +62,11 @@ from vae_gan_mark_tpu_torch.train.state import (
     create_train_state, get_lr, init_state_dicts, set_lr,
     vgg_state_dict as default_vgg_state_dict)
 from vae_gan_mark_tpu_torch.train.step import (
-    build_eval_step, build_train_step)
+    build_eval_step, build_multi_eval_step, build_multi_train_step,
+    build_train_step, make_generator)
 
 DataSource = Callable[[int], Iterator[dict]]
 StateDict = Mapping[str, torch.Tensor]
-
-
-def derive_seed(*keys: int) -> int:
-    """A 63-bit seed from a tuple of non-negative integers."""
-    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(
-        2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
-
-
-def make_generator(device: torch.device, *keys: int) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(derive_seed(*keys))
 
 
 def float32_value(x: float) -> float:
@@ -137,7 +137,8 @@ class Trainer:
                  vgg_state_dict: Optional[StateDict] = None,
                  logger: Optional[MetricsLogger] = None,
                  nan_guard: bool = True,
-                 profile_dir: Optional[str] = None):
+                 profile_dir: Optional[str] = None,
+                 multi_step: int = 1):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -163,6 +164,10 @@ class Trainer:
         self.vgg.to(self.device)
         self.train_step = build_train_step(cfg)
         self.eval_step = build_eval_step(cfg)
+        self.multi_step = max(int(multi_step), 1)
+        if self.multi_step > 1:
+            self.multi_train_step = build_multi_train_step(cfg)
+            self.multi_eval_step = build_multi_eval_step(cfg)
 
         self.epoch = 0
         self.best_val = float("inf")
@@ -213,16 +218,16 @@ class Trainer:
     def train_epoch(self, epoch: int) -> dict:
         kl_w = float32_value(kl_weight_for_epoch(self.cfg, epoch))
         # Metric sums stay on the device and are read once an epoch.
-        sums, count, images = None, 0, 0
         t0 = time.time()
-        for batch in prefetch_to_device(self.train_data(epoch), self._put):
-            gen = make_generator(self.device, self.seed, self.state.step)
-            self.state, metrics = self.train_step(
-                self.state, self.vgg, batch, gen, kl_w)
-            images += batch["ru"].shape[0]
-            sums = metrics if sums is None else {
-                k: sums[k] + metrics[k] for k in sums}
-            count += 1
+        if self.multi_step > 1:
+            sums, count, images = self._train_epoch_multi(epoch, kl_w)
+        else:
+            sums, count, images = None, 0, 0
+            for batch in prefetch_to_device(self.train_data(epoch),
+                                            self._put):
+                sums = self._single_train_step(batch, kl_w, sums)
+                images += batch["ru"].shape[0]
+                count += 1
         avg = self._host_means(sums, count)
         dt = time.time() - t0
         if self.nan_guard and avg and not np.isfinite(avg["loss_G"]):
@@ -233,10 +238,60 @@ class Trainer:
         avg["kl_weight"] = kl_w
         return avg
 
+    def _single_train_step(self, batch: dict, kl_w: float,
+                           sums: Optional[dict]) -> dict:
+        gen = make_generator(self.device, self.seed, self.state.step)
+        self.state, metrics = self.train_step(self.state, self.vgg, batch,
+                                              gen, kl_w)
+        return metrics if sums is None else {
+            k: sums[k] + metrics[k] for k in sums}
+
+    def _train_epoch_multi(self, epoch: int, kl_w: float) -> tuple:
+        """The epoch in groups of K batches, each through the multi train
+        step; a trailing group of fewer than K batches as single steps."""
+        k = self.multi_step
+
+        def grouped():
+            group = []
+            for batch in self.train_data(epoch):
+                if batch is None:
+                    continue
+                group.append(batch)
+                if len(group) == k:
+                    yield group
+                    group = []
+            if group:
+                yield group
+
+        sums, count, images = None, 0, 0
+        for group in prefetch_to_device(
+                grouped(), lambda g: [self._put(b) for b in g]):
+            if len(group) == k:
+                self.state, sums = self.multi_train_step(
+                    self.state, self.vgg, group, self.seed, kl_w, sums)
+            else:
+                for batch in group:
+                    sums = self._single_train_step(batch, kl_w, sums)
+            count += len(group)
+            images += sum(b["ru"].shape[0] for b in group)
+        return sums, count, images
+
+    def _caption(self, host_batch: dict, i: int, epoch: int) -> str:
+        # The caption carries the target text, cut at 50 characters, as
+        # the reference's does.
+        raw_texts = host_batch.get("raw_text")
+        if raw_texts is None:
+            return f"Epoch {epoch + 1}"
+        t = raw_texts[i]
+        label = t[:50] + "..." if len(t) > 50 else t
+        return f"Epoch {epoch + 1} | Target: '{label}'"
+
     def validate(self, epoch: int) -> dict:
         if self.val_data is None:
             return {}
         kl_w = float32_value(kl_weight_for_epoch(self.cfg, epoch))
+        if self.multi_step > 1:
+            return self._validate_multi(epoch, kl_w)
         sums, n_samples = None, 0
         triplets = []
         for batch_idx, host_batch in enumerate(self.val_data(epoch)):
@@ -254,21 +309,71 @@ class Trainer:
                 k: sums[k] + weighted[k] for k in sums}
             if len(triplets) < 16:
                 fake_np = fake.cpu().numpy()
-                raw_texts = host_batch.get("raw_text")
                 for i in range(min(bsz, 16 - len(triplets))):
-                    # The caption carries the target text, cut at 50
-                    # characters, as the reference's does.
-                    if raw_texts is not None:
-                        t = raw_texts[i]
-                        label = t[:50] + "..." if len(t) > 50 else t
-                        caption = f"Epoch {epoch + 1} | Target: '{label}'"
-                    else:
-                        caption = f"Epoch {epoch + 1}"
                     triplets.append((to_numpy(host_batch["ru"][i]),
                                      to_numpy(host_batch["en"][i]),
-                                     fake_np[i], caption))
+                                     fake_np[i],
+                                     self._caption(host_batch, i, epoch)))
         avg = self._host_means(sums, n_samples)
         if triplets:
+            self.logger.log_images(triplets, step=epoch + 1)
+        return avg
+
+    def _validate_multi(self, epoch: int, kl_w: float) -> dict:
+        """Validation in groups of K val batches through the multi eval
+        step, a trailing group of fewer than K as single steps; every batch
+        keeps its global index. The metrics equal the single-step
+        validation's bit for bit (the same generators, the same
+        batch-size weights, summed in the same order); the triplets come
+        from val batch 0 only, as the JAX Trainer's do."""
+        k = self.multi_step
+        sums, n_samples = None, 0
+        fake0, first_host = None, None
+        group: list = []
+        start = 0
+
+        def flush(group, start):
+            nonlocal sums, n_samples, fake0, first_host
+            batches = [self._put(b) for b in group]
+            idxs = list(range(start, start + len(group)))
+            if len(group) == k:
+                per_batch, fake = self.multi_eval_step(
+                    self.state, self.vgg, batches, idxs, self.seed, kl_w)
+            else:
+                per_batch, fake = [], None
+                for batch, idx in zip(batches, idxs):
+                    metrics, f = self.eval_step(
+                        self.state, self.vgg, batch, make_generator(
+                            self.device, self.seed, idx, self.state.step),
+                        kl_w)
+                    per_batch.append(metrics)
+                    fake = f if fake is None else fake
+            for batch, metrics in zip(batches, per_batch):
+                bsz = batch["ru"].shape[0]
+                n_samples += bsz
+                weighted = {key: v * bsz for key, v in metrics.items()}
+                sums = weighted if sums is None else {
+                    key: sums[key] + weighted[key] for key in sums}
+            if start == 0:
+                fake0, first_host = fake.cpu().numpy(), group[0]
+
+        for host_batch in self.val_data(epoch):
+            if host_batch is None:
+                continue
+            group.append(host_batch)
+            if len(group) == k:
+                flush(group, start)
+                start += k
+                group = []
+        if group:
+            flush(group, start)
+
+        avg = self._host_means(sums, n_samples)
+        if fake0 is not None:
+            triplets = [(to_numpy(first_host["ru"][i]),
+                         to_numpy(first_host["en"][i]), fake0[i],
+                         self._caption(first_host, i, epoch))
+                        for i in range(min(fake0.shape[0], 16))]
             self.logger.log_images(triplets, step=epoch + 1)
         return avg
 

@@ -9,6 +9,16 @@ norm ``cfg.grad_clip_norm`` before its Adam step (``clip_by_global_norm_``);
 D's is not clipped. Learning rates can change between steps
 (``get_lr`` / ``set_lr``), as the plateau schedule does between epochs.
 
+On the card both Adams are ``capturable``: their step counts and learning
+rates are float32 tensors on the card, so a CUDA graph of the train step
+(``train/graphs.py``) replays their update and ``set_lr`` writes the rate
+the graph reads. That holds for every ``multi_step``: a capturable Adam
+computes its bias corrections on the card in float32, which moves a step's
+parameters by a few ulps against the CPU-side arithmetic of a plain one, so
+one kind of Adam for every K keeps K = 1 and K > 1 equal bit for bit. On
+the CPU the Adams are plain, with the step count on the CPU and a float
+rate. ``load_optimizer_state`` loads a checkpoint's Adam into either kind.
+
 ``init_state_dicts(cfg, seed)`` draws a fresh G and D from the JAX
 initializers' distributions; ``vgg_state_dict()`` gives the frozen VGG head
 (ported weights from ``tools/vgg16_features.npz`` when present, else a
@@ -52,16 +62,16 @@ def vgg_state_dict(path: str = VGG_WEIGHTS_PATH) -> Dict[str, torch.Tensor]:
     return init_vgg_state_dict(VGG_SEED)
 
 
-def make_g_optimizer(cfg: VariantConfig,
-                     params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=cfg.lr_g,
-                            betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
-
-
-def make_d_optimizer(cfg: VariantConfig,
-                     params: Iterable[torch.nn.Parameter]) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=cfg.lr_d,
-                            betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8)
+def make_adam(params: Iterable[torch.nn.Parameter], lr: float,
+              cfg: VariantConfig, device: torch.device) -> torch.optim.Adam:
+    """The reference's Adam, ``capturable`` with a float32 rate tensor on
+    the card (see the module doc)."""
+    if device.type == "cuda":
+        return torch.optim.Adam(
+            params, lr=torch.tensor(lr, dtype=torch.float32, device=device),
+            betas=(cfg.adam_b1, cfg.adam_b2), eps=1e-8, capturable=True)
+    return torch.optim.Adam(params, lr=lr, betas=(cfg.adam_b1, cfg.adam_b2),
+                            eps=1e-8)
 
 
 def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
@@ -81,12 +91,37 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
 
 
 def get_lr(opt: torch.optim.Optimizer) -> float:
+    """The first group's learning rate (one host sync for a rate tensor)."""
     return float(opt.param_groups[0]["lr"])
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; a rate tensor is written in place, so a
+    captured graph that reads it sees the new rate."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, saved: Mapping) -> None:
+    """``opt.load_state_dict(saved)`` that keeps ``opt``'s own kind: its
+    ``capturable`` flag and rate object (a checkpoint of the other kind, or
+    from the other device, loads all the same), the step counts on the card
+    for a capturable Adam and on the CPU for a plain one."""
+    kept = [(g["capturable"], g["lr"]) for g in opt.param_groups]
+    opt.load_state_dict(saved)
+    for group, (capturable, lr) in zip(opt.param_groups, kept):
+        saved_lr = float(group["lr"])
+        group["capturable"] = capturable
+        group["lr"] = (lr.fill_(saved_lr) if isinstance(lr, torch.Tensor)
+                       else saved_lr)
+        for p in group["params"]:
+            state = opt.state.get(p)
+            if state and "step" in state:
+                state["step"] = (state["step"].to(p.device, torch.float32)
+                                 if capturable else state["step"].cpu())
 
 
 class TrainState:
@@ -97,8 +132,10 @@ class TrainState:
                  discriminator: PatchDiscriminator):
         self.generator = generator
         self.discriminator = discriminator
-        self.opt_g = make_g_optimizer(cfg, generator.parameters())
-        self.opt_d = make_d_optimizer(cfg, discriminator.parameters())
+        device = next(generator.parameters()).device
+        self.opt_g = make_adam(generator.parameters(), cfg.lr_g, cfg, device)
+        self.opt_d = make_adam(discriminator.parameters(), cfg.lr_d, cfg,
+                               device)
         self.step = 0
 
 

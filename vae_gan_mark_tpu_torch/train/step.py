@@ -29,6 +29,18 @@ mode, ``recon, kl, psnr, masked_l1, mark_recovery``, and with
 ``cfg.full_loss_val`` also ``gan_g, perc, loss_G, loss_D`` from a
 discriminator that does not advance ``u``.
 
+``build_multi_train_step(cfg)`` and ``build_multi_eval_step(cfg)`` run K
+steps per call (the JAX package's ``multi_step``). K steps equal K single
+steps: step ``s`` draws from a generator seeded from ``(seed, s)``, val
+batch ``i`` after step ``s`` from ``(seed, i, s)``, as the epoch driver's
+single steps do. On the card each step is a replay of a CUDA graph of the
+single step (``train/graphs.py``), captured at the first call that finds
+the step warm (run eagerly on that batch signature in this process) and,
+for training, both Adams' state present; until then, and for a batch that
+does not fit the graph, the steps run eagerly. On the CPU they always run
+eagerly. ``kl_weight`` may be a float or a 0-d float32 tensor: the step
+multiplies by it either way, with the same result for a float32 value.
+
 Precision: G's convolutions run in the compute dtype. The discriminator
 computes in float32 in both modes, as the JAX package's does, and the JAX
 package runs its float32 work (D, the GRU, their gradients) at HIGH or
@@ -42,7 +54,7 @@ A batch is a dict of tensors on one device: ``ru``, ``en`` (B, H, W, 3),
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,11 +66,25 @@ from vae_gan_mark_tpu_torch.losses import (
     perceptual_loss)
 from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
 from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
+from vae_gan_mark_tpu_torch.ops import gru
+from vae_gan_mark_tpu_torch.train.graphs import (
+    CapturedStep, is_warm, mark_warm)
 from vae_gan_mark_tpu_torch.train.state import (
     TrainState, clip_by_global_norm_)
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
+
+
+def derive_seed(*keys: int) -> int:
+    """A 63-bit seed from a tuple of non-negative integers."""
+    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+def make_generator(device: torch.device, *keys: int) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(derive_seed(*keys))
 
 
 def batch_to_device(batch: Mapping[str, np.ndarray],
@@ -163,5 +189,125 @@ def build_eval_step(cfg: VariantConfig):
                     "loss_D": 0.5 * (hinge_d_real(real_preds)
                                      + hinge_d_fake(fake_preds))})
         return metrics, fake
+
+    return step
+
+
+def _adam_ready(state: TrainState) -> bool:
+    """Both Adams hold state for every parameter they update: a capture
+    must not record their lazy initialisation."""
+    return all(opt.state.get(p) for opt in (state.opt_g, state.opt_d)
+               for group in opt.param_groups for p in group["params"])
+
+
+class _Replay:
+    """The graph of one multi step: captured once, for the state and VGG
+    it was captured with and one batch signature."""
+
+    def __init__(self, kind: str, cfg: VariantConfig):
+        self.kind = kind
+        self.hidden = cfg.char_rnn_hidden
+        self.graph: Optional[CapturedStep] = None
+        self.owner: Tuple = ()
+
+    def get(self, state: TrainState, vgg: VGG16Features, batch: Batch,
+            capture) -> Optional[CapturedStep]:
+        """The graph for this call, captured now with ``capture`` if the
+        step is warm (and, for training, Adam's state is there); None when
+        the call runs eagerly."""
+        if batch["ru"].device.type != "cuda":
+            return None
+        if self.graph is None:
+            if not is_warm(self.kind, batch) or (
+                    self.kind == "train" and not _adam_ready(state)):
+                return None
+            rows = batch["ru"].shape[0]
+            gru.KERNEL.prepare(rows, self.hidden)
+            if self.kind == "train":
+                gru.BACKWARD_KERNEL.prepare(rows, self.hidden)
+            self.graph = CapturedStep(capture, batch)
+            self.owner = (state, vgg)
+        if self.owner[0] is not state or self.owner[1] is not vgg:
+            raise ValueError("this multi step's graph was captured for "
+                             "another train state; build a new multi step "
+                             "for this one")
+        return self.graph if self.graph.fits(batch) else None
+
+
+def build_multi_train_step(cfg: VariantConfig):
+    """``step(state, vgg, batches, seed, kl_weight, sums=None) -> (state,
+    sums)``: the train steps on ``batches`` in order, step ``s`` with a
+    generator seeded from ``(seed, s)``. Each step's metrics are added
+    into ``sums`` as they come (it starts as the first step's), so the
+    result is K times the steps' mean, which the JAX package's multi step
+    returns and its epoch driver weights by K, and an epoch's sums are the
+    sequential driver's bit for bit."""
+    single = build_train_step(cfg)
+    replay = _Replay("train", cfg)
+
+    def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
+             seed: int, kl_weight,
+             sums: Optional[Metrics] = None) -> Tuple[TrainState, Metrics]:
+        def capture(inputs, generator, kl):
+            step0 = state.step
+            _, metrics = single(state, vgg, inputs, generator, kl)
+            state.step = step0
+            return metrics
+
+        for batch in batches:
+            graph = replay.get(state, vgg, batch, capture)
+            if graph is not None:
+                metrics = graph.replay(batch, derive_seed(seed, state.step),
+                                       kl_weight)
+                state.step += 1
+            else:
+                device = batch["ru"].device
+                state, metrics = single(state, vgg, batch, make_generator(
+                    device, seed, state.step), kl_weight)
+                if device.type == "cuda":
+                    mark_warm("train", batch)
+            # A replay's outputs are overwritten by the next replay.
+            sums = ({k: v.clone() for k, v in metrics.items()} if sums is None
+                    else {k: sums[k] + metrics[k] for k in sums})
+        return state, sums
+
+    return step
+
+
+def build_multi_eval_step(cfg: VariantConfig):
+    """``step(state, vgg, batches, idxs, seed, kl_weight) -> (metrics,
+    fake0)``: the eval steps on ``batches``, the one at val-batch index
+    ``idxs[j]`` with a generator seeded from ``(seed, idxs[j],
+    state.step)``; ``metrics`` holds each batch's metrics, in order, and
+    ``fake0`` the first batch's generated patches, as the JAX package's
+    multi eval step returns them."""
+    single = build_eval_step(cfg)
+    replay = _Replay("eval", cfg)
+
+    def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
+             idxs: Sequence[int], seed: int, kl_weight
+             ) -> Tuple[List[Metrics], torch.Tensor]:
+        def capture(inputs, generator, kl):
+            return single(state, vgg, inputs, generator, kl)
+
+        out, fake0 = [], None
+        for batch, idx in zip(batches, idxs):
+            graph = replay.get(state, vgg, batch, capture)
+            if graph is not None:
+                metrics, fake = graph.replay(
+                    batch, derive_seed(seed, idx, state.step), kl_weight)
+                metrics = {k: v.clone() for k, v in metrics.items()}
+                if fake0 is None:
+                    fake0 = fake.clone()
+            else:
+                device = batch["ru"].device
+                metrics, fake = single(state, vgg, batch, make_generator(
+                    device, seed, idx, state.step), kl_weight)
+                if device.type == "cuda":
+                    mark_warm("eval", batch)
+                if fake0 is None:
+                    fake0 = fake
+            out.append(metrics)
+        return out, fake0
 
     return step

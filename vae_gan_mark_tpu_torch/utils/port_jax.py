@@ -16,11 +16,15 @@ Layout changes:
   (in, out, kh, kw).
 * GRU ``w_ih`` (in, 3H) and ``w_hh`` (H, 3H) transposed to torch's (3H, .).
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+* oldv: the text encoder's Conv1d kernel (k, in, out) -> (out, in, k), its
+  ``pos_enc`` (1, h, w, C) -> (1, C, h, w), a gated skip's ``alpha`` (C,)
+  -> (1, C, 1, 1).
 
 One table per network (``_entries``, ``_disc_entries``, ``_vgg_entries``)
 lists every leaf with its JAX path, its port key, its layout change and its
 JAX shape; the bridge and the seeded random init both read it. Covers the
-char-conditioned U-Net generators (v2 with FiLM, unet without), the
+char-conditioned U-Net generators (v2 with FiLM, unet without, oldv with
+gated skips and the positional text encoder), the
 unconditional discriminator and VGG16 ``features[:16]``. The seeded trees
 stand in for weights that cannot be reproduced with torch's RNG (the JAX
 initialisers, VGG's fixed ``PRNGKey(16)``), so that a run without JAX can
@@ -46,7 +50,7 @@ class Entry(NamedTuple):
     collection: str            # "params", "batch_stats" or "spectral"
     path: Tuple[str, ...]      # JAX tree path inside the collection
     key: str                   # port state-dict key
-    kind: str                  # "conv", "tconv", "gru" or "plain"
+    kind: str                  # a layout change: see to_port_layout
     shape: Tuple[int, ...]     # JAX-side shape
 
 
@@ -70,9 +74,10 @@ def _double_conv(jp, sp, cin, cout):
 
 
 def _entries(cfg: VariantConfig) -> Iterator[Entry]:
-    if cfg.generator not in ("film4", "unet") or cfg.text_encoder != "char":
+    if cfg.generator not in ("film4", "film3", "unet") or \
+            cfg.text_encoder not in ("char", "char_posenc"):
         raise NotImplementedError(
-            f"the weight bridge covers the v2/unet generators, not "
+            f"the weight bridge covers the v2, unet and oldv generators, not "
             f"{cfg.generator!r}/{cfg.text_encoder!r}")
     levels = cfg.num_levels
     text_ch = 2 * cfg.char_rnn_hidden
@@ -110,6 +115,15 @@ def _entries(cfg: VariantConfig) -> Iterator[Entry]:
                         "plain", (3 * hid,))
             yield Entry("params", jp + ("b_hh",), f"{sp}.rnn.bias_hh_{tag}",
                         "plain", (3 * hid,))
+    if cfg.text_encoder == "char_posenc":
+        jp = ("text_encoder", "Conv_0")
+        yield Entry("params", jp + ("kernel",), f"{sp}.conv1d.weight",
+                    "conv1d", (3, text_ch, text_ch))
+        yield Entry("params", jp + ("bias",), f"{sp}.conv1d.bias", "plain",
+                    (text_ch,))
+        yield Entry("params", ("text_encoder", "pos_enc"), f"{sp}.pos_enc",
+                    "nhwc", (1, cfg.text_feature_height,
+                             cfg.text_feature_width, text_ch))
 
     dec, sp = ("decoder",), "image_vae_decoder_module"
     jp = dec + ("TConvBNRelu_0",)
@@ -128,7 +142,10 @@ def _entries(cfg: VariantConfig) -> Iterator[Entry]:
                     "tconv", (2, 2, prev, c))
         yield Entry("params", jp + ("bias",), f"{sp}.up_tconv{n}.bias",
                     "plain", (c,))
-        if cfg.generator == "film4":
+        if cfg.generator == "film3":
+            yield Entry("params", dec + (f"gate{i}", "alpha"),
+                        f"{sp}.skip_gates.{i}.alpha", "gate", (c,))
+        if cfg.generator in ("film4", "film3"):
             jp = dec + (f"film{i}",)
             fp = f"{sp}.spatial_film{n}.param_predictor"
             yield Entry("params", jp + ("predict_kernel",), f"{fp}.0.weight",
@@ -212,16 +229,25 @@ def to_port_layout(kind: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
     if kind == "gru":
         return value.T
+    if kind == "conv1d":                    # (k, in, out) -> (out, in, k)
+        return np.transpose(value, (2, 1, 0))
+    if kind == "nhwc":                      # (1, H, W, C) -> (1, C, H, W)
+        return np.transpose(value, (0, 3, 1, 2))
+    if kind == "gate":                      # (C,) -> (1, C, 1, 1)
+        return value.reshape(1, -1, 1, 1)
     return value
 
 
 def _random_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     name = e.path[-1]
-    if e.kind in ("conv", "tconv"):
+    if e.kind in ("conv", "tconv", "conv1d"):
         # He-normal over the fan-in. A stride-equal-to-kernel transposed conv
         # sums over input channels only.
-        fan_in = e.shape[2] if e.kind == "tconv" else int(np.prod(e.shape[:3]))
+        fan_in = (e.shape[2] if e.kind == "tconv"
+                  else int(np.prod(e.shape[:-1])))
         value = rng.normal(0.0, np.sqrt(2.0 / fan_in), e.shape)
+    elif name == "alpha":                           # gates around 0.3
+        value = rng.uniform(0.0, 0.6, e.shape)
     elif name in ("w_ih", "w_hh", "b_ih", "b_hh"):
         bound = 1.0 / np.sqrt(e.shape[-1] // 3)      # torch's GRU init
         value = rng.uniform(-bound, bound, e.shape)
@@ -259,10 +285,10 @@ def _init_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     kernels ``lecun_normal`` (fan-in = the product of all but the output
     axis of the HWIO shape), the GRU's uniform(-1/sqrt(H), 1/sqrt(H)), flax
     ``nn.Embed``'s normal(0, 1/sqrt(features)), ``u`` a normal vector over
-    its norm, and the constants: scales and variances one, biases and means
-    zero."""
+    its norm, oldv's ``pos_enc`` 0.02 * normal(0, 1), and the constants:
+    scales and variances one, biases and means zero, gate ``alpha`` 0.3."""
     name = e.path[-1]
-    if e.kind in ("conv", "tconv"):
+    if e.kind in ("conv", "tconv", "conv1d"):
         fan_in = int(np.prod(e.shape[:-1]))
         value = _truncated_normal(rng, e.shape) * np.float32(
             np.sqrt(1.0 / fan_in) / _TRUNCATED_STD)
@@ -275,6 +301,11 @@ def _init_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     elif name == "u":
         value = rng.standard_normal(e.shape)
         value /= np.linalg.norm(value) + 1e-12
+    elif name == "pos_enc":
+        value = rng.standard_normal(e.shape, dtype=np.float32) * np.float32(
+            0.02)
+    elif name == "alpha":
+        value = np.full(e.shape, 0.3)
     elif name in ("scale", "bn_scale", "var", "bn_var"):
         value = np.ones(e.shape)
     elif name in ("bias", "bn_bias", "gb_bias", "mean", "bn_mean"):
