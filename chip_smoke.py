@@ -77,7 +77,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against CPU), 5 bf16 train steps (ms a step, 2 + 2 GRU launches), one
    f32 step CUDA against CPU at B=2 with phase 7's limits, a profiled bf16
    step by kernel class;
-11. print the kernels' JSON line and, last, the device line.
+11. vanilla at full width (448x64, ``enc_chans=(128,256,512,1024)``, z 128,
+   text 64 from a 384-wide sentence embedding, a 4x28 latent) with seeded
+   weights through the bridge: serving in bf16 and f32 through
+   ``InferenceEngine`` (texts through ``hash_embed``; img/s, a profile,
+   CUDA against CPU), 5 bf16 train steps (ms a step, a profile), one f32
+   step CUDA against CPU at B=2, 4 graph replays of the bf16 step against
+   eager ones (bit for bit, cudnn.deterministic), and lr_sh through
+   ``Trainer.fit`` until the plateau lowers both rates; each path with the
+   GRU counts at 0 before it and 0 after it (the plain generator runs no
+   GRU);
+12. the conditional D head: v2 with it, 5 bf16 train steps at bs 16 (2 + 2
+   GRU launches a step) and one f32 step CUDA against CPU at B=2; vanilla
+   with it (the ``cond_dense`` branch), one f32 step CUDA against CPU;
+13. print the kernels' JSON line and, last, the device line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -131,7 +144,19 @@ BF16_MAX_ABS, BF16_MEAN_ABS = 0.05, 0.01
 # hold rounding noise there, held to 1e-3 of the network's largest moment.
 STEP_LOSS_RTOL, STEP_BUFFER_ATOL, STEP_BUFFER_RTOL = 1e-4, 1e-5, 1e-4
 STEP_MOMENT_L2, STEP_MOMENT_ZERO = 5e-2, 1e-3
-ZERO_GRADIENT_PARAMS = ("image_vae_decoder_module.bottleneck_proc.0.bias",)
+# The plain generator (vanilla, lr_sh) has such a bias ahead of every
+# BatchNorm: its encoder's convs and its decoder's transposed convs.
+PLAIN_ZERO_GRADIENT_PARAMS = tuple(
+    [f"encoder.feat.{i}.bias" for i in (0, 3, 6, 9)]
+    + [f"decoder.decode.{i}.bias" for i in (0, 3, 6, 9, 12)])
+
+
+def zero_gradient_params(cfg) -> tuple:
+    if cfg.generator == "plain":
+        return PLAIN_ZERO_GRADIENT_PARAMS
+    return ("image_vae_decoder_module.bottleneck_proc.0.bias",)
+
+
 # oldv's step moves D's u further apart: u is one power iteration on D's
 # weights after their first Adam update, lr * g / (|g| + eps), which turns
 # the devices' gradient differences where |g| is near eps into steps of up
@@ -656,13 +681,16 @@ def train_batch(cfg, n: int, seed: int, device, with_eps: bool = False):
 
     rng = np.random.default_rng(seed)
     shape = (n, cfg.patch_h, cfg.patch_w)
-    tokens = rng.integers(1, cfg.vocab_size, (n, cfg.max_text_len))
-    tokens[:, rng.integers(10, cfg.max_text_len):] = 0        # PAD tail
+    if cfg.text_encoder == "sbert":                 # sentence embeddings
+        text = rng.normal(0, 1, (n, cfg.sbert_dim)).astype(np.float32)
+    else:
+        text = rng.integers(1, cfg.vocab_size, (n, cfg.max_text_len))
+        text[:, rng.integers(10, cfg.max_text_len):] = 0      # PAD tail
     batch = {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
              "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
              "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
                  np.float32),
-             "text": tokens}
+             "text": text}
     if with_eps:
         batch["eps"] = rng.normal(0, 1, (n, 1, 1, cfg.z_ch)).astype(
             np.float32)
@@ -676,7 +704,8 @@ def train_weights(cfg):
         vgg_state_dict_from_jax)
 
     return (state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg),
-            discriminator_state_dict_from_jax(*random_discriminator_tree(1)),
+            discriminator_state_dict_from_jax(
+                *random_discriminator_tree(1, cfg), cfg),
             vgg_state_dict_from_jax(random_vgg_tree(2)))
 
 
@@ -755,12 +784,12 @@ def step_rate(step, state, vgg, gen, batch, iters: int) -> dict:
     return dict(batch=n, step_ms=dt / iters * 1e3, img_per_s=iters * n / dt)
 
 
-def l2_spread(a: dict, b: dict) -> list:
+def l2_spread(a: dict, b: dict, zero_gradient: tuple) -> list:
     """Per-tensor ||a - b|| / ||b|| over the moments, sorted, largest
     last; the zero-gradient parameters left out."""
     return sorted(((a[k] - b[k]).norm().item()
                    / max(b[k].norm().item(), 1e-30), k)
-                  for k in b if k not in ZERO_GRADIENT_PARAMS)
+                  for k in b if k not in zero_gradient)
 
 
 def compare_devices(cfg, weights, one_thread: bool = True,
@@ -776,6 +805,7 @@ def compare_devices(cfg, weights, one_thread: bool = True,
     from vae_gan_mark_tpu_torch.train import build_train_step
 
     cfg = dataclasses.replace(cfg, char_rnn_dropout=0.0)
+    zero_gradient = zero_gradient_params(cfg)
     threads = torch.get_num_threads()
     runs = {}
     runs_on = [("cuda", threads), ("cpu", threads)]
@@ -810,9 +840,9 @@ def compare_devices(cfg, weights, one_thread: bool = True,
     buffer_err = max(bn_err, u_err)
     net_max = max(v.abs().max().item() for v in mom_cpu.values())
     zero_err = max((mom_gpu[k] - mom_cpu[k]).abs().max().item()
-                   / (STEP_MOMENT_ZERO * net_max) for k in ZERO_GRADIENT_PARAMS)
-    devices = l2_spread(mom_gpu, mom_cpu)
-    cpu_threads = (l2_spread(runs["cpu_1_thread"][2], mom_cpu)
+                   / (STEP_MOMENT_ZERO * net_max) for k in zero_gradient)
+    devices = l2_spread(mom_gpu, mom_cpu, zero_gradient)
+    cpu_threads = (l2_spread(runs["cpu_1_thread"][2], mom_cpu, zero_gradient)
                    if one_thread else [(float("nan"), "not run")])
     moment_err = max(devices[-1][0] / STEP_MOMENT_L2, zero_err)
     result = dict(losses_cuda=m_gpu, losses_cpu=m_cpu,
@@ -952,8 +982,8 @@ def max_abs_diff(a: dict, b: dict) -> float:
     return max((a[k].float() - b[k].float()).abs().max().item() for k in b)
 
 
-def read_records(workdir: str) -> list:
-    with open(os.path.join(workdir, "v2.metrics.jsonl")) as f:
+def read_records(workdir: str, run: str = "v2") -> list:
+    with open(os.path.join(workdir, f"{run}.metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
 
 
@@ -1738,6 +1768,48 @@ def phase_multi_step_driver(gru) -> dict:
     return result
 
 
+def gru_counts(gru) -> tuple:
+    return gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches
+
+
+def zero_gru_counts(gru) -> None:
+    torch.cuda.synchronize()
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+
+
+def timed_train_steps(gru, cfg, state, vgg, seed: int, what: str,
+                      per_step: tuple) -> dict:
+    """One warm-up step, then TRAIN_STEPS steps at batch BATCH with the
+    GRU counts at 0 just before them; fails unless they launched
+    ``per_step`` (forward, backward) a step and the losses are finite."""
+    from vae_gan_mark_tpu_torch.train import build_train_step
+
+    step = build_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [train_batch(cfg, BATCH, seed + i, "cuda")
+               for i in range(TRAIN_STEPS)]
+    state, _ = step(state, vgg, batches[0], gen, 1e-3)      # warm-up
+    zero_gru_counts(gru)
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, metrics = step(state, vgg, batch, gen, 1e-3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    launches = gru_counts(gru)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(launches == tuple(TRAIN_STEPS * n for n in per_step),
+          f"{what} train: GRU launches {launches}, expected {per_step} a "
+          f"step")
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"{what} train: non-finite losses {losses}")
+    print(f"[{what}] train {cfg.compute_dtype} bs={BATCH}: {step_ms:.1f} ms "
+          f"a step ({BATCH / step_ms * 1e3:.1f} img/s) over {TRAIN_STEPS} "
+          f"steps, GRU launches {launches}; last losses " + " ".join(
+              f"{k}={v:.4f}" for k, v in losses.items()), flush=True)
+    return dict(state=state, step=step, gen=gen, batches=batches,
+                step_ms=step_ms, launches=launches, losses=losses)
+
+
 # Phase 10: oldv at 448x64.
 def phase_oldv(gru, card: str) -> dict:
     """oldv at full width: serving in bf16 and f32 (img/s, 2 GRU launches a
@@ -1746,7 +1818,6 @@ def phase_oldv(gru, card: str) -> dict:
     limits, and a profiled bf16 step by kernel class."""
     from vae_gan_mark_tpu_torch.config import get_config
     from vae_gan_mark_tpu_torch.serve import InferenceEngine
-    from vae_gan_mark_tpu_torch.train import build_train_step
 
     cfgs = {name: get_config("oldv", compute_dtype=name)
             for name in ("bfloat16", "float32")}
@@ -1786,40 +1857,238 @@ def phase_oldv(gru, card: str) -> dict:
     check(device_err <= DEVICE_ATOL, f"oldv CUDA against CPU {device_err}")
     result["serve"]["device_max_abs_err"] = device_err
 
-    cfg = cfgs["bfloat16"]
-    state, vgg = make_trainer(cfg, weights, "cuda")
-    step = build_train_step(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    batches = [train_batch(cfg, BATCH, 700 + i, "cuda")
-               for i in range(TRAIN_STEPS)]
-    state, _ = step(state, vgg, batches[0], gen, 1e-3)      # warm-up
-    torch.cuda.synchronize()
-    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
-    t0 = time.perf_counter()
-    for batch in batches:
-        state, metrics = step(state, vgg, batch, gen, 1e-3)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
-    losses = {k: float(v) for k, v in metrics.items()}
-    check(launches == (2 * TRAIN_STEPS, 2 * TRAIN_STEPS),
-          f"oldv train: GRU launches {launches}, expected 2 + 2 a step")
-    check(all(np.isfinite(v) for v in losses.values()),
-          f"oldv train: non-finite losses {losses}")
-    print(f"[oldv] train bf16 bs={BATCH}: {step_ms:.1f} ms a step "
-          f"({BATCH / step_ms * 1e3:.1f} img/s) over {TRAIN_STEPS} steps, GRU "
-          f"launches {launches}; last losses " + " ".join(
-              f"{k}={v:.4f}" for k, v in losses.items()), flush=True)
-    result["train"] = dict(step_ms=step_ms, launches=launches, losses=losses)
+    state, vgg = make_trainer(cfgs["bfloat16"], weights, "cuda")
+    run = timed_train_steps(gru, cfgs["bfloat16"], state, vgg, 700, "oldv",
+                            (2, 2))
+    state, step, gen, batches, step_ms = (
+        run[k] for k in ("state", "step", "gen", "batches", "step_ms"))
+    result["train"] = {k: run[k] for k in ("step_ms", "launches", "losses")}
     result["profile"] = profile_call(
         lambda: (step(state, vgg, batches[0], gen, 1e-3),
                  torch.cuda.synchronize()),
         f"oldv bf16 train step bs={BATCH}", step_ms)
-    del state, vgg, batches
+    del state, vgg, batches, run
     torch.cuda.empty_cache()
     result["cuda_vs_cpu"] = compare_devices(cfgs["float32"], weights,
                                             one_thread=False,
                                             u_atol=OLDV_U_ATOL)
+    return result
+
+
+# Phase 11: vanilla and lr_sh (the plain generator, sbert text) at 448x64.
+def phase_vanilla(gru, card: str) -> dict:
+    """vanilla at full width: serving through ``InferenceEngine`` in bf16
+    and f32 (texts through ``hash_embed``; img/s, a profile, CUDA against
+    CPU), 5 bf16 train steps (ms a step, a profile), one f32 step CUDA
+    against CPU at B=2, 4 graph replays of the bf16 step against eager
+    steps (bit for bit, cudnn.deterministic; a float ``text`` through the
+    graph layer), and lr_sh through ``Trainer.fit`` until its plateau
+    lowers the rates. The GRU counts are 0 before each path and must read
+    0 after it: the plain generator runs no GRU, as in the JAX package."""
+    import copy
+    import shutil
+
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.data.device_synthetic import (
+        DeviceResidentSynthetic)
+    from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from vae_gan_mark_tpu_torch.serve import InferenceEngine
+    from vae_gan_mark_tpu_torch.train import build_multi_train_step
+    from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
+    from vae_gan_mark_tpu_torch.train.loop import Trainer, make_generator
+
+    cfgs = {name: get_config("vanilla", compute_dtype=name)
+            for name in ("bfloat16", "float32")}
+    weights = train_weights(cfgs["float32"])
+    result = dict(serve={}, launches={})
+    requests = make_requests(cfgs["float32"], BATCH, seed=41)
+    outs, engines = {}, {}
+    for name, cfg in cfgs.items():
+        engines[name] = engine = InferenceEngine(cfg, weights[0],
+                                                 batch_size=BATCH, seed=0)
+        check(engine.device.type == "cuda", "vanilla engine not on the card")
+        engine.generate(*requests)
+        zero_gru_counts(gru)
+        outs[name] = engine.generate(*requests)
+        torch.cuda.synchronize()
+        result["launches"][f"serve_{name}"] = gru_counts(gru)
+        check_patches(outs[name], BATCH, cfg, f"vanilla {name} generate(16)")
+        iters = 20
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.generate(*requests)
+        dt = time.perf_counter() - t0
+        result["serve"][name] = dict(img_per_s=iters * BATCH / dt,
+                                     batch_ms=dt / iters * 1e3)
+        print(f"[vanilla] serve {name} bs={BATCH}: {iters * BATCH / dt:.1f} "
+              f"img/s ({dt / iters * 1e3:.2f} ms a batch) on {card}",
+              flush=True)
+    serve_launches = result["launches"]
+    check(all(v == (0, 0) for v in serve_launches.values()),
+          f"vanilla serving launched the GRU: {serve_launches}")
+    cpu_out = InferenceEngine(cfgs["float32"], weights[0], batch_size=BATCH,
+                              seed=0, device="cpu").generate(*requests)
+    device_err = float(np.abs(cpu_out - outs["float32"]).max())
+    diff = np.abs(outs["bfloat16"] - outs["float32"])
+    print(f"[vanilla] serve CUDA against CPU, float32 (TF32 off): max abs err "
+          f"{device_err:.3e} (limit {DEVICE_ATOL}); bf16 against f32 max "
+          f"{diff.max():.3e}, mean {diff.mean():.3e}", flush=True)
+    check(device_err <= DEVICE_ATOL, f"vanilla CUDA against CPU {device_err}")
+    check(diff.max() <= BF16_MAX_ABS and diff.mean() <= BF16_MEAN_ABS,
+          f"vanilla bf16 against f32: {diff.max()}, {diff.mean()}")
+    result["serve"].update(device_max_abs_err=device_err,
+                           bf16_max_abs=float(diff.max()))
+    result["serve"]["profile"] = {name: profile_call(
+        lambda eng=eng: eng.generate(*requests),
+        f"vanilla {name} generate(16)", result["serve"][name]["batch_ms"])
+        for name, eng in engines.items()}
+    del engines
+
+    cfg = cfgs["bfloat16"]
+    state, vgg = make_trainer(cfg, weights, "cuda")
+    run = timed_train_steps(gru, cfg, state, vgg, 800, "vanilla", (0, 0))
+    state, step, gen, batches, step_ms = (
+        run[k] for k in ("state", "step", "gen", "batches", "step_ms"))
+    check(batches[0]["text"].dtype == torch.float32,
+          "vanilla batches carry float sentence embeddings")
+    result["launches"]["train"] = run["launches"]
+    result["train"] = {k: run[k] for k in ("step_ms", "losses")}
+    result["train"]["profile"] = profile_call(
+        lambda: (step(state, vgg, batches[0], gen, 1e-3),
+                 torch.cuda.synchronize()),
+        f"vanilla bf16 train step bs={BATCH}", step_ms)
+
+    # Graph replays of the bf16 step (a float text input) against eager
+    # steps from one state.
+    torch.backends.cudnn.deterministic = True
+    try:
+        # One group on a throwaway multi step: its first batch runs eagerly
+        # and warms the signature, the rest replay its graph.
+        state, _ = build_multi_train_step(cfg)(state, vgg,
+                                               batches[:MULTI_K], 0, 1e-3)
+        saved = copy.deepcopy(state)
+        eager, sums_e = copy.deepcopy(saved), None
+        for batch in batches[:MULTI_K]:
+            eager, m = step(eager, vgg, batch, make_generator(
+                "cuda", 0, eager.step), 1e-3)
+            sums_e = m if sums_e is None else {k: sums_e[k] + m[k]
+                                               for k in sums_e}
+        replayed = copy.deepcopy(saved)
+        zero_gru_counts(gru)
+        replays = []
+        replay = CapturedStep.replay
+        CapturedStep.replay = lambda self, *a: (replays.append(1),
+                                                replay(self, *a))[1]
+        try:
+            replayed, sums_g = build_multi_train_step(cfg)(
+                replayed, vgg, batches[:MULTI_K], 0, 1e-3)
+        finally:
+            CapturedStep.replay = replay
+        torch.cuda.synchronize()
+        result["launches"]["graph"] = gru_counts(gru)
+        state_diff = max_abs_diff(state_tensors(eager),
+                                  state_tensors(replayed))
+        metric_diff = max(abs(float(sums_e[k]) - float(sums_g[k]))
+                          for k in sums_e)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"[vanilla] {MULTI_K} bf16 steps as graph replays against eager "
+          f"steps (cuDNN deterministic): state differs by {state_diff:.3e},"
+          f" summed metrics by {metric_diff:.3e} (limit 0); GRU launches "
+          f"{result['launches']['graph']}", flush=True)
+    check(state_diff == 0.0 and metric_diff == 0.0
+          and len(replays) == MULTI_K
+          and result["launches"]["graph"] == (0, 0),
+          f"vanilla replays against eager: {state_diff}, {metric_diff}, "
+          f"{len(replays)} replays")
+    result["graph"] = dict(state_max_abs_diff=state_diff,
+                           metric_max_abs_diff=metric_diff)
+    del state, vgg, saved, eager, replayed, batches, run
+    torch.cuda.empty_cache()
+    result["cuda_vs_cpu"] = compare_devices(cfgs["float32"], weights,
+                                            one_thread=False,
+                                            u_atol=OLDV_U_ATOL)
+
+    # lr_sh through the epoch driver: plateau patience 0 and a relative
+    # threshold of 0.5, so the rates fall after the second epoch.
+    lr_cfg = get_config("lr_sh", compute_dtype="bfloat16", batch_size=BATCH,
+                        **{"scheduler.patience": 0,
+                           "scheduler.threshold": 0.5})
+    train = DeviceResidentSynthetic(
+        SyntheticPatchDataset(lr_cfg, 4 * BATCH, seed=0), BATCH, 4)
+    val = DeviceResidentSynthetic(
+        SyntheticPatchDataset(lr_cfg, BATCH, seed=1), BATCH, 1,
+        advance_per_epoch=False)
+    workdir = os.path.join(RUNS_DIR, "lr_sh")
+    shutil.rmtree(workdir, ignore_errors=True)
+    zero_gru_counts(gru)
+    trainer = Trainer(lr_cfg, train, val, workdir, seed=0,
+                      init=weights[:2], vgg_state_dict=weights[2])
+    trainer.fit(3)
+    torch.cuda.synchronize()
+    result["launches"]["lr_sh_fit"] = gru_counts(gru)
+    records = read_records(workdir, "lr_sh")
+    lrs = [(r["learning_rate/generator"], r["learning_rate/discriminator"])
+           for r in records]
+    print(f"[vanilla] lr_sh Trainer.fit 3 epochs of 4 steps (bf16, bs "
+          f"{BATCH}): val recon " + ", ".join(
+              f"{r['val/recon_loss']:.4f}" for r in records)
+          + f"; rates (G, D) by epoch {lrs}; GRU launches "
+          f"{result['launches']['lr_sh_fit']}", flush=True)
+    check(len(lrs) == 3
+          and lrs[0] == tuple(float(np.float32(x))
+                              for x in (lr_cfg.lr_g, lr_cfg.lr_d))
+          and lrs[2][0] < lrs[1][0] and lrs[2][1] < lrs[1][1]
+          and result["launches"]["lr_sh_fit"] == (0, 0)
+          and all(np.isfinite(r["train/generator_loss"]) for r in records),
+          f"lr_sh Trainer: rates {lrs}, {records[-1]}")
+    result["lr_sh"] = dict(learning_rates=lrs, records=records)
+    shutil.rmtree(workdir, ignore_errors=True)
+    del trainer, train, val
+    torch.cuda.empty_cache()
+    return result
+
+
+# Phase 12: the projection-conditional D head at 448x64.
+def phase_cond_disc(gru, card: str) -> dict:
+    """v2 with ``conditional_disc``: 5 bf16 train steps at bs 16 with 2 + 2
+    GRU launches a step, and one f32 step at B=2 CUDA against CPU; vanilla
+    with it (the ``cond_dense`` branch): one f32 step CUDA against CPU."""
+    from vae_gan_mark_tpu_torch.config import get_config
+
+    cfg = get_config("v2", compute_dtype="bfloat16", conditional_disc=True)
+    weights = train_weights(get_config("v2", compute_dtype="float32",
+                                       conditional_disc=True))
+    check(any(k.startswith("cond_embed") for k in weights[1]),
+          "conditional v2 D has no cond_embed")
+    state, vgg = make_trainer(cfg, weights, "cuda")
+    head = {k: v.detach().clone() for k, v in
+            state.discriminator.named_parameters() if k.startswith("cond")}
+    run = timed_train_steps(gru, cfg, state, vgg, 900, "cond_disc v2",
+                            (2, 2))
+    state, step_ms, launches, losses = (
+        run[k] for k in ("state", "step_ms", "launches", "losses"))
+    moved = all(not torch.equal(head[k], p.detach()) for k, p in
+                state.discriminator.named_parameters() if k in head)
+    print(f"[cond_disc] the head trained: {moved}", flush=True)
+    check(moved, "conditional v2 train: the head did not move")
+    result = dict(v2_train=dict(step_ms=step_ms, launches=launches,
+                                losses=losses))
+    del state, vgg, run
+    torch.cuda.empty_cache()
+    # D's weights after its first Adam update differ by up to lr between
+    # the devices where |g| is near Adam's eps (see OLDV_U_ATOL), so u is
+    # held to atol lr here too.
+    result["v2_cuda_vs_cpu"] = compare_devices(
+        get_config("v2", compute_dtype="float32", conditional_disc=True),
+        weights, one_thread=False, u_atol=OLDV_U_ATOL)
+    vanilla = get_config("vanilla", compute_dtype="float32",
+                         conditional_disc=True)
+    vanilla_weights = train_weights(vanilla)
+    check(any(k.startswith("cond_dense") for k in vanilla_weights[1]),
+          "conditional vanilla D has no cond_dense")
+    result["vanilla_cuda_vs_cpu"] = compare_devices(
+        vanilla, vanilla_weights, one_thread=False, u_atol=OLDV_U_ATOL)
     return result
 
 
@@ -1918,8 +2187,17 @@ def main() -> int:
     multi_driver = phase_multi_step_driver(gru)
     t_oldv = time.perf_counter()
     oldv = phase_oldv(gru, card)
-    new_phases_s = dict(multi_step=t_oldv - t_new,
-                        oldv=time.perf_counter() - t_oldv)
+    t_vanilla = time.perf_counter()
+    vanilla = phase_vanilla(gru, card)
+    t_cond = time.perf_counter()
+    print(f"[done] phase 11 (vanilla, lr_sh) took {t_cond - t_vanilla:.1f} s",
+          flush=True)
+    cond = phase_cond_disc(gru, card)
+    t_end = time.perf_counter()
+    print(f"[done] phase 12 (conditional D) took {t_end - t_cond:.1f} s",
+          flush=True)
+    new_phases_s = dict(multi_step=t_oldv - t_new, oldv=t_vanilla - t_oldv,
+                        vanilla=t_cond - t_vanilla, cond_disc=t_end - t_cond)
     print(f"[done] phase 9 took {new_phases_s['multi_step']:.1f} s, phase "
           f"10 {new_phases_s['oldv']:.1f} s", flush=True)
 
@@ -1945,7 +2223,10 @@ def main() -> int:
                  multi_step_run_b=multi_driver["run_b"]["launches"][
                      "forward"],
                  oldv_serve_chunk=oldv["serve"]["bfloat16"]["launches"],
-                 oldv_train=oldv["train"]["launches"][0]),
+                 oldv_train=oldv["train"]["launches"][0],
+                 vanilla_serve=vanilla["launches"]["serve_bfloat16"][0],
+                 vanilla_train=vanilla["launches"]["train"][0],
+                 cond_v2_train=cond["v2_train"]["launches"][0]),
              max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
              directions_per_launch=fwd_row["directions_per_launch"],
              ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
@@ -1965,7 +2246,10 @@ def main() -> int:
                  multi_step_graph_8_steps=multi["launches_8_steps"][1],
                  multi_step_run_b=multi_driver["run_b"]["launches"][
                      "backward"],
-                 oldv_train=oldv["train"]["launches"][1]),
+                 oldv_train=oldv["train"]["launches"][1],
+                 vanilla_serve=vanilla["launches"]["serve_bfloat16"][1],
+                 vanilla_train=vanilla["launches"]["train"][1],
+                 cond_v2_train=cond["v2_train"]["launches"][1]),
              max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
              directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
@@ -1992,7 +2276,8 @@ def main() -> int:
                        gru_backward=backward, conv=conv, serve=serve,
                        train=train, epoch_driver=driver,
                        multi_step=multi, multi_step_driver=multi_driver,
-                       oldv=oldv, new_phases_s=new_phases_s,
+                       oldv=oldv, vanilla=vanilla, cond_disc=cond,
+                       new_phases_s=new_phases_s,
                        kernels=kernels),
                   f, indent=1,
                   default=str)

@@ -21,7 +21,8 @@ from vae_gan_mark_tpu_torch.config import get_config
 from vae_gan_mark_tpu_torch.models import (
     PatchDiscriminator, VAEGANGenerator, VGG16Features)
 from vae_gan_mark_tpu_torch.utils.port_jax import (
-    discriminator_state_dict_from_jax, random_discriminator_tree,
+    disc_cond_args, discriminator_state_dict_from_jax,
+    random_discriminator_tree,
     random_jax_tree, random_vgg_tree, state_dict_from_jax,
     vgg_state_dict_from_jax)
 
@@ -30,7 +31,8 @@ from torch_port_common import TINY, jax_tree_shapes_of
 CASES = {"v2_tiny": ("v2", TINY), "unet_tiny": ("unet", TINY),
          "v2_full": ("v2", {}),
          "oldv_tiny": ("oldv", dict(TINY, enc_chans=(8, 16, 24))),
-         "oldv_full": ("oldv", {})}
+         "oldv_full": ("oldv", {}),
+         "vanilla_full": ("vanilla", {}), "lr_sh_full": ("lr_sh", {})}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -92,8 +94,15 @@ def test_bridge_rejects_wrong_shapes_and_variants():
     params["decoder"]["Conv_0"]["bias"] = np.zeros(4, np.float32)
     with pytest.raises(ValueError, match="Conv_0"):
         state_dict_from_jax(params, stats, cfg)
-    with pytest.raises(NotImplementedError):
-        random_jax_tree(get_config("vanilla"), seed=0)
+    # The bridge makes a vanilla tree: the plain encoder and decoder and
+    # the sbert projection, the JAX package's vanilla layout.
+    params, stats = random_jax_tree(get_config("vanilla", **TINY), seed=0)
+    assert sorted(params) == ["decoder", "encoder", "text_encoder"]
+    assert sorted(params["encoder"]) == [
+        "ConvBNRelu_0", "ConvBNRelu_1", "ConvBNRelu_2", "ConvBNRelu_3",
+        "_LatentHeads_0"]
+    assert params["text_encoder"]["Dense_0"]["kernel"].shape == (384, 64)
+    assert sorted(stats["decoder"]) == [f"TConvBNRelu_{i}" for i in range(5)]
 
 
 def _disc_trees(seed):
@@ -146,3 +155,31 @@ def test_other_networks_match_jax_and_invert(network):
     if network == "discriminator":
         for u in trees["spectral"].values():
             assert np.linalg.norm(u["u"]) == pytest.approx(1.0, rel=1e-6)
+
+
+@pytest.mark.parametrize("variant", ["v2", "vanilla"],
+                         ids=["cond_embed", "cond_dense"])
+def test_conditional_discriminator_tree_matches_jax_init(variant):
+    """With ``conditional_disc`` the discriminator's tree has the head's
+    branch for the config's text (int tokens: ``cond_embed``; sbert
+    vectors: ``cond_dense``) and ``cond_proj``, as the JAX init makes it;
+    its keys are the port's; without the head the JAX package's
+    ``port_discriminator`` reads the tree back as before."""
+    cfg = get_config(variant, **TINY, conditional_disc=True)
+    params, spectral = random_discriminator_tree(3, cfg)
+    text = (jax.ShapeDtypeStruct((2, 384), jnp.float32) if variant ==
+            "vanilla" else jax.ShapeDtypeStruct((2, 12), jnp.int32))
+    variables = jax.eval_shape(
+        lambda x, t: JaxDiscriminator(cond_vocab=cfg.vocab_size).init(
+            jax.random.PRNGKey(0), x, t),
+        jax.ShapeDtypeStruct((2, 32, 64, 3), jnp.float32), text)
+    assert jax.tree.map(np.shape, {"params": params, "spectral": spectral}) \
+        == jax.tree.map(lambda v: tuple(v.shape), dict(variables))
+    sd = discriminator_state_dict_from_jax(params, spectral, cfg)
+    port = PatchDiscriminator(**disc_cond_args(cfg))
+    assert sd.keys() == port.state_dict().keys()
+    port.load_state_dict(sd)
+    plain = {k: v for k, v in sd.items() if not k.startswith("cond")}
+    back, _ = port_discriminator(plain)
+    assert {k: v for k, v in params.items() if not k.startswith("cond")} \
+        .keys() == back.keys()

@@ -2,8 +2,8 @@
 cpu``, ``--set``), and what serving and evaluation from a checkpoint stand
 on: the train CLI writes the metric log and both checkpoints and resumes
 when run again, the serve CLI renders a PNG from that workdir, the eval CLI
-prints one JSON line, unported variants are refused, ``from_checkpoint``
-serves the checkpoint's generator, and ``eval``'s full-image path matches
+prints one JSON line, vanilla, lr_sh and oldv with the sbert text path run
+through all three, ``from_checkpoint`` serves the checkpoint's generator, and ``eval``'s full-image path matches
 the JAX package's (rtol 1e-3, atol 2e-4, as the whole generators in
 test_torch_port_models.py), its uint8-mask quirk included."""
 
@@ -122,19 +122,38 @@ def test_eval_cli_prints_one_json_line(trained, capsys, extra):
     assert all(np.isfinite(v) for v in result.values())
 
 
-# oldv is ported; with the sbert text path it is refused.
+# The variants the port once refused (the sbert text path) run now: the
+# train CLI for an epoch and again for a second (it resumes), the eval CLI
+# and the serve CLI (with --allow-hash-embed: no SBERT model is cached).
 @pytest.mark.parametrize("variant,overrides", [
-    ("vanilla", []), ("lr_sh", []), ("oldv", ["--set", "text_encoder=sbert"])],
+    ("vanilla", []), ("lr_sh", []),
+    ("oldv", ["--set", "text_encoder=sbert", "--set", "enc_chans=8,16,24"])],
     ids=["vanilla", "lr_sh", "oldv"])
-def test_unported_variants_are_refused(variant, overrides, tmp_path):
-    for main, extra in ((cli.main, ["--synthetic"]),
-                        (eval_cli.main, ["--synthetic"]),
-                        (serve_cli.main, ["--image", "i", "--mask", "m",
-                                          "--quad", "0", "--text", "t",
-                                          "--out", "o"])):
-        with pytest.raises(SystemExit, match="not ported to PyTorch yet"):
-            main(["--variant", variant, "--workdir", str(tmp_path)]
-                 + overrides + extra)
+def test_unported_variants_are_refused(variant, overrides, tmp_path,
+                                       capsys):
+    from PIL import Image
+    common = (["--variant", variant, "--workdir", str(tmp_path / "run"),
+               "--device", "cpu"] + SETS + overrides)
+    train = common + ["--synthetic", "--synthetic-samples", "8",
+                      "--batch-size", "4"]
+    cli.main(train + ["--epochs", "1"])
+    cli.main(train + ["--epochs", "2"])
+    out = capsys.readouterr().out
+    assert "[resume] from epoch 0" in out and "done; best val recon" in out
+    with open(tmp_path / "run" / f"{variant}.metrics.jsonl") as f:
+        assert [json.loads(line)["epoch"] for line in f] == [1, 2]
+    eval_cli.main(common + ["--synthetic", "--synthetic-samples", "8",
+                            "--batch-size", "4"])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["samples"] == 8 and result["checkpoint_epoch"] in (0, 1)
+    assert all(np.isfinite(v) for v in result.values())
+    Image.fromarray(np.zeros((40, 80, 3), np.uint8)).save(tmp_path / "i.png")
+    serve_cli.main(common + ["--image", str(tmp_path / "i.png"), "--mask",
+                             str(tmp_path / "i.png"), "--quad",
+                             "5,5,70,5,70,35,5,35", "--text", "NEW",
+                             "--out", str(tmp_path / "o.png"),
+                             "--allow-hash-embed"])
+    assert np.asarray(Image.open(tmp_path / "o.png")).shape == (40, 80, 3)
 
 
 def test_clis_default_to_the_card(trained, tmp_path):

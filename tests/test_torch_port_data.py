@@ -5,6 +5,7 @@ samples, the native library's own build, and the patch cache. Every
 comparison is exact: both sides decode the same files with the same
 libraries and must give the same arrays, bit for bit."""
 
+import json
 import os
 
 import numpy as np
@@ -21,6 +22,7 @@ from vae_gan_mark_tpu_torch.config import get_config
 from vae_gan_mark_tpu_torch.data import native_warp, pipeline
 from vae_gan_mark_tpu_torch.data import patch_cache
 from vae_gan_mark_tpu_torch.data.index import build_index, grouped_split
+from vae_gan_mark_tpu_torch.data.text_embed import hash_embed
 
 from test_data import make_dataset
 
@@ -161,8 +163,20 @@ def test_patch_cache_persists_invalidates_and_prewarms(tmp_path, capsys):
                .filled.min()) == 2                        # reopened, kept
     assert int(patch_cache.PatchCache(cache_dir, cfg, samples)
                .filled.max()) == 0                        # geometry changed
-    with pytest.raises(SystemExit, match="sbert"):
-        patch_cache.main(["--variant", "vanilla", "--json-dir", dirs["json"],
-                          "--ru-dir", dirs["ru"], "--en-dir", dirs["en"],
-                          "--mask-dir", dirs["mask"],
-                          "--cache-dir", cache_dir])
+    # vanilla caches too, its texts as sbert embeddings (text mode
+    # sbert384); without a cached SBERT model only with --allow-hash-embed.
+    sbert_dir = str(tmp_path / "sbert_cache")
+    patch_cache.main(["--variant", "vanilla", "--json-dir", dirs["json"],
+                      "--ru-dir", dirs["ru"], "--en-dir", dirs["en"],
+                      "--mask-dir", dirs["mask"], "--cache-dir", sbert_dir,
+                      "--num-workers", "2", "--allow-hash-embed"])
+    assert f"{len(samples)} samples cached" in capsys.readouterr().out
+    with open(os.path.join(sbert_dir, "meta.json")) as f:
+        assert json.load(f)["text_mode"] == "sbert384"
+    cache = patch_cache.PatchCache(sbert_dir, get_config("vanilla"), samples)
+    assert int(cache.filled.min()) == 2
+    assert cache.text.dtype == np.float32 and cache.text.shape == (
+        len(samples), 384)
+    texts = [cache._row_text(i) for i in range(len(samples))]
+    np.testing.assert_array_equal(np.asarray(cache.text),
+                                  hash_embed(texts))

@@ -457,3 +457,74 @@ def test_oldv_generator_on_card_launches_the_gru_twice(card):
             assert gru.KERNEL.launches - before == 2
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+def test_vanilla_serving_on_card_matches_cpu(card):
+    """vanilla through ``InferenceEngine`` on the card and on the CPU, the
+    same weights, noise and hash-embedded texts: within 1e-4 (float32, TF32
+    off), and no GRU launch (the plain generator has no GRU)."""
+    cfg = get_config("vanilla", **TINY)
+    sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    rng = np.random.default_rng(5)
+    ru = rng.uniform(0, 1, (5, 32, 64, 3)).astype(np.float32)
+    mask = (rng.uniform(0, 1, (5, 32, 64, 1)) > 0.5).astype(np.float32)
+    texts = ["SALE", "", "50% OFF", "NEW", "x" * 70]
+    before = gru.KERNEL.launches
+    got = InferenceEngine(cfg, sd, batch_size=4, device=card).generate(
+        ru, mask, texts)
+    assert gru.KERNEL.launches == before
+    ref = InferenceEngine(cfg, sd, batch_size=4, device="cpu").generate(
+        ru, mask, texts)
+    assert got.shape == (5, 32, 64, 3)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["v2", "vanilla"])
+def test_conditional_disc_step_on_card_matches_cpu(card, variant):
+    """One float32 step with the conditional D head (``cond_embed`` for v2,
+    ``cond_dense`` for vanilla) on the card and on the CPU: the metrics at
+    rtol 1e-4, the head's Adam first moments within 1e-3 of their largest
+    value; v2 launches each GRU kernel twice, vanilla neither."""
+    from vae_gan_mark_tpu_torch.train.state import init_state_dicts
+
+    cfg = get_config(variant, **{**TINY, "char_rnn_dropout": 0.0,
+                                 "conditional_disc": True})
+    g_sd, d_sd = init_state_dicts(cfg, seed=2)
+    assert any(k.startswith("cond_proj") for k in d_sd)
+    vgg_sd = vgg_state_dict_from_jax(random_vgg_tree(2))
+    rng = np.random.default_rng(6)
+    shape = (2, cfg.patch_h, cfg.patch_w)
+    text = (rng.normal(0, 1, (2, cfg.sbert_dim)).astype(np.float32)
+            if variant == "vanilla"
+            else rng.integers(0, cfg.vocab_size, (2, cfg.max_text_len)))
+    batch = {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
+                 np.float32),
+             "text": text,
+             "eps": rng.normal(0, 1, (2, 1, 1, cfg.z_ch)).astype(np.float32)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        state = create_train_state(cfg, g_sd, d_sd, device=device)
+        vgg = VGG16Features().to(device)
+        vgg.load_state_dict(vgg_sd)
+        before = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        state, metrics = build_train_step(cfg)(
+            state, vgg, batch_to_device(batch, device),
+            torch.Generator(device=device).manual_seed(0), 1e-3)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = (gru.KERNEL.launches - before[0],
+                        gru.BACKWARD_KERNEL.launches - before[1])
+            assert launches == ((2, 2) if variant == "v2" else (0, 0))
+        runs[device] = ({k: float(v) for k, v in metrics.items()},
+                        {n: state.opt_d.state[p]["exp_avg"].cpu()
+                         for n, p in state.discriminator.named_parameters()
+                         if n.startswith("cond")})
+    (m_gpu, head_gpu), (m_cpu, head_cpu) = runs["cuda"], runs["cpu"]
+    for key in m_cpu:
+        assert m_gpu[key] == pytest.approx(m_cpu[key], rel=1e-4, abs=1e-6)
+    for key in head_cpu:
+        torch.testing.assert_close(
+            head_gpu[key], head_cpu[key], rtol=0,
+            atol=1e-3 * float(head_cpu[key].abs().max()))

@@ -9,12 +9,13 @@ only from the environment (``WANDB_API_KEY``). The run uses the card unless
 ``--device cpu`` is given, and fails without one. Running the same command
 again resumes from the workdir's ``last_checkpoint``.
 
-The port's generator builds the char-conditioned U-Net variants (v2, unet,
-oldv); a config with the plain generator or the sbert text path (vanilla,
-lr_sh) is refused. ``--multi-step K`` runs K train steps (and K val
-batches) per call, on the card as CUDA-graph replays of one step. The JAX
-flags that wait for later work are not here: ``--loader device``,
-``--no-mesh`` and the multi-process flags.
+Every variant trains: vanilla and lr_sh (the plain generator, sbert text
+embedded on the host: the cached SBERT model, else ``hash_embed`` with a
+warning), unet, v2 and oldv; ``--set conditional_disc=1`` adds the
+projection-conditional discriminator head. ``--multi-step K`` runs K train
+steps (and K val batches) per call, on the card as CUDA-graph replays of
+one step. The JAX flags that wait for later work are not here: ``--loader
+device``, ``--no-mesh`` and the multi-process flags.
 """
 
 from __future__ import annotations
@@ -23,22 +24,6 @@ import argparse
 import dataclasses
 
 from vae_gan_mark_tpu_torch.config import VARIANTS, get_config
-
-NOT_PORTED = {
-    ("generator", "plain"): "the plain generator",
-    ("text_encoder", "sbert"): "the sbert text path",
-}
-
-
-def check_variant(cfg) -> None:
-    """Exit with a message for a config the port does not build yet."""
-    for (field, value), what in NOT_PORTED.items():
-        if getattr(cfg, field) == value:
-            raise SystemExit(
-                f"variant {cfg.name!r} with {field}={value!r} is not ported "
-                f"to PyTorch yet ({what}; ROADMAP.md, 'Modules to port'); "
-                f"the port trains, serves and evaluates v2, unet and oldv")
-
 
 def add_device_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -190,8 +175,13 @@ def disk_sources(cfg, args):
     train_idx, val_idx = grouped_split(samples, cfg.val_split,
                                        cfg.split_seed)
     print(f"train/val: {len(train_idx)}/{len(val_idx)}")
+    text_embed_fn = None
+    if cfg.text_encoder == "sbert":
+        from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
+        text_embed_fn = make_text_embedder()
     common = dict(batch_size=cfg.batch_size, seed=args.seed,
-                  num_workers=args.num_workers, cache_dir=args.patch_cache)
+                  num_workers=args.num_workers, cache_dir=args.patch_cache,
+                  text_embed_fn=text_embed_fn)
     train_data = HostWarpLoader(cfg, samples, train_idx, shuffle=True,
                                 drop_last=True, **common)
     val_data = HostWarpLoader(cfg, samples, val_idx, shuffle=False,
@@ -212,7 +202,6 @@ def main(argv=None):
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
     cfg = get_config(args.variant, **overrides)
-    check_variant(cfg)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")

@@ -3,11 +3,12 @@ batch an index gather on the card (the JAX package's
 ``data/device_synthetic.py``).
 
 A synthetic dataset does not change between epochs, so ``ru``, ``en``,
-``mask`` and the tokens go to the device once, and a batch costs one copy of
-its int64 row indices and a gather per array, with no image bytes from the
-host. Batches and their order are the same as ``SyntheticPatchDataset.batch``
-(rows ``(arange(bs) + step * bs) % n``), bit for bit, so a run checkpointed
-on the host path resumes on this one and back.
+``mask`` and the text (tokens, or embeddings for the sbert path) go to the
+device once, and a batch costs one copy of its int64 row indices and a
+gather per array, with no image bytes from the host. Batches and their
+order are the same as ``SyntheticPatchDataset.batch`` (rows
+``(arange(bs) + step * bs) % n``), bit for bit, so a run checkpointed on
+the host path resumes on this one and back.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Iterator, Union
 import numpy as np
 import torch
 
+from vae_gan_mark_tpu_torch.data import as_batch_tensor
 from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
 
 
@@ -41,12 +43,13 @@ class DeviceResidentSynthetic:
         # i + epoch * steps)); val sources replay the same window
         # (batch(bs, i)).
         self.advance = advance_per_epoch
-        tokens = ds.text_batch(np.arange(ds.num_samples))
+        text = ds.text_batch(np.arange(ds.num_samples))
         self.data = {
             "ru": torch.from_numpy(ds.ru).to(self.device),
             "en": torch.from_numpy(ds.en).to(self.device),
             "mask": torch.from_numpy(ds.mask).to(self.device),
-            "text": torch.from_numpy(tokens).long().to(self.device),
+            "text": as_batch_tensor("text", torch.from_numpy(text)).to(
+                self.device),
         }
 
     def __call__(self, epoch: int) -> Iterator[dict]:

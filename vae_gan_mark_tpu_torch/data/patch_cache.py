@@ -3,7 +3,9 @@ then stream it from a memmap (the JAX package's ``data/patch_cache.py``).
 
 ``load_sample`` is deterministic and the dataset static, so later epochs
 need not decode the same pixels again. ``PatchCache`` keeps one uint8 row
-per sample (ru RGB + en RGB + mask, packed (H, W, 7)) and its char tokens.
+per sample (ru RGB + en RGB + mask, packed (H, W, 7)) and its text: char
+tokens, or for the sbert text path its float32 embedding (text mode
+``sbert384``; ``text_embed_fn``, else ``hash_embed``).
 Rows fill at first access (or all at once with ``prewarm``). A fingerprint
 of the index (paths, boxes, texts, file sizes and times) and the patch
 geometry clears the cache when either changes. A sample that fails to load
@@ -14,6 +16,9 @@ Prewarm from the command line:
     python -m vae_gan_mark_tpu_torch.data.patch_cache --variant v2 \
         --json-dir ... --ru-dir ... --en-dir ... --mask-dir ... \
         --cache-dir ./patch_cache
+
+For vanilla and lr_sh it embeds the texts with the cached SBERT model and
+refuses without one, unless ``--allow-hash-embed`` accepts ``hash_embed``.
 """
 
 from __future__ import annotations
@@ -22,12 +27,13 @@ import concurrent.futures as cf
 import hashlib
 import json
 import os
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.data.index import Sample
+from vae_gan_mark_tpu_torch.data.text_embed import encode_texts
 from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 
 _CHANNELS = 7  # ru RGB | en RGB | mask
@@ -62,17 +68,23 @@ def dataset_fingerprint(cfg: VariantConfig,
 class PatchCache:
     """Memmap cache over the whole sample list (the train and val loaders
     read disjoint rows of the same arrays); char tokens as int32
-    (N, max_text_len)."""
+    (N, max_text_len), or sbert embeddings as float32 (N, sbert_dim)."""
 
     def __init__(self, cache_dir: str, cfg: VariantConfig,
-                 samples: Sequence[Sample]):
+                 samples: Sequence[Sample],
+                 text_embed_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.samples = samples
         self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
+        self.text_embed_fn = text_embed_fn
         n = len(samples)
         h, w = cfg.patch_h, cfg.patch_w
-        text_mode = f"chars{cfg.max_text_len}"
-        text_shape = (n, cfg.max_text_len)
+        if cfg.text_encoder == "sbert":
+            text_mode = f"sbert{cfg.sbert_dim}"
+            text_shape, text_dtype = (n, cfg.sbert_dim), np.float32
+        else:
+            text_mode = f"chars{cfg.max_text_len}"
+            text_shape, text_dtype = (n, cfg.max_text_len), np.int32
 
         os.makedirs(cache_dir, exist_ok=True)
         self.dir = cache_dir
@@ -108,7 +120,7 @@ class PatchCache:
         # ok: the decode succeeded. A failed row keeps the zero images and
         # the EMPTY text; its index text must not reach the tokens.
         self.ok = open_memmap("ok.u8", np.uint8, (n,))
-        self.text = open_memmap("text.bin", np.int32, text_shape)
+        self.text = open_memmap("text.bin", text_dtype, text_shape)
 
     # -- fill ----------------------------------------------------------
     def _fill_pixels(self, idx: int) -> None:
@@ -124,7 +136,8 @@ class PatchCache:
         self.ok[idx] = 1 if text == self.samples[idx].text else 0
 
     def _encode_texts(self, texts: List[str]) -> np.ndarray:
-        return self.tokenizer.encode(texts)
+        return encode_texts(self.cfg, self.tokenizer, self.text_embed_fn,
+                            texts)
 
     def ensure(self, indices: Sequence[int], num_workers: int = 8) -> None:
         """Fill any missing rows (threaded decode; texts encoded
@@ -201,15 +214,21 @@ def main(argv=None):
     p.add_argument("--mask-dir", required=True)
     p.add_argument("--cache-dir", required=True)
     p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--allow-hash-embed", action="store_true",
+                   help="sbert variants: cache hash_embed pseudo-embeddings "
+                        "when the SBERT model is not cached locally")
     args = p.parse_args(argv)
 
     cfg = get_config(args.variant)
-    if cfg.text_encoder == "sbert":
-        raise SystemExit(f"variant {args.variant!r}: the sbert text path is "
-                         "not ported yet")
     samples = build_index(args.json_dir, args.ru_dir, args.en_dir,
                           args.mask_dir)
-    cache = PatchCache(args.cache_dir, cfg, samples)
+    text_embed_fn = None
+    if cfg.text_encoder == "sbert":
+        from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
+        text_embed_fn = make_text_embedder(
+            require_sbert=not args.allow_hash_embed)
+    cache = PatchCache(args.cache_dir, cfg, samples,
+                       text_embed_fn=text_embed_fn)
     cache.prewarm(num_workers=args.num_workers, progress=True)
     print(f"[patch_cache] {len(samples)} samples cached in {args.cache_dir}")
 

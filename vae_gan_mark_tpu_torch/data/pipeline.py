@@ -7,8 +7,10 @@ patch with cv2 (or, without cv2, the native C++ warp of
 threads, as the reference's DataLoader workers do. The reference's defences
 stay: a sample that fails to load gives zero images and an empty text, and a
 batch that loses every sample is ``None``. Batches are dicts of numpy
-arrays {ru, en, mask: NHWC float32 in [0, 1], text: int32 tokens, raw_text};
-the trainer moves them to the card. ``cache_dir`` streams decoded patches
+arrays {ru, en, mask: NHWC float32 in [0, 1], text, raw_text}; ``text``
+holds int32 char tokens, or for the sbert text path (B, sbert_dim) float32
+embeddings from ``text_embed_fn`` (``hash_embed`` without one). The
+trainer moves them to the card. ``cache_dir`` streams decoded patches
 from ``data/patch_cache.py`` after their first decode.
 """
 
@@ -16,12 +18,13 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
-from typing import Iterator, List, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.data.index import Sample
+from vae_gan_mark_tpu_torch.data.text_embed import encode_texts
 from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 
 try:
@@ -94,12 +97,14 @@ def load_sample(sample: Sample, cfg: VariantConfig):
 class HostWarpLoader:
     """Data source (``epoch -> iterator of batches``) over a subset of the
     index; with ``shuffle`` the order is a permutation drawn from
-    ``seed + epoch``."""
+    ``seed + epoch``. ``text_embed_fn``: texts -> (B, sbert_dim) for the
+    sbert text path (``data/text_embed.py:make_text_embedder``)."""
 
     def __init__(self, cfg: VariantConfig, samples: Sequence[Sample],
                  indices: Sequence[int], batch_size: Optional[int] = None,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, num_workers: int = 8,
+                 text_embed_fn: Optional[Callable] = None,
                  cache_dir: Optional[str] = None):
         self.cfg = cfg
         self.samples = samples
@@ -110,10 +115,12 @@ class HostWarpLoader:
         self.seed = seed
         self.num_workers = num_workers
         self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
+        self.text_embed_fn = text_embed_fn
         self.cache = None
         if cache_dir is not None:
             from vae_gan_mark_tpu_torch.data.patch_cache import PatchCache
-            self.cache = PatchCache(cache_dir, cfg, samples)
+            self.cache = PatchCache(cache_dir, cfg, samples,
+                                    text_embed_fn=text_embed_fn)
 
     def __len__(self):
         n = len(self.indices)
@@ -121,7 +128,8 @@ class HostWarpLoader:
         return n // b if self.drop_last else (n + b - 1) // b
 
     def _encode_text(self, texts: List[str]) -> np.ndarray:
-        return self.tokenizer.encode(texts)
+        return encode_texts(self.cfg, self.tokenizer, self.text_embed_fn,
+                            texts)
 
     def __call__(self, epoch: int) -> Iterator[dict]:
         order = np.asarray(self.indices)

@@ -12,8 +12,11 @@ re-rendered with the target text:
 
 ``text_dependent=False`` keeps the channel rotation alone and needs no
 Pillow. Batches are numpy; ``train/step.py:batch_to_device`` moves one to a
-device, and ``raw_text`` (a list of str) stays on the host. Only the char
-text path is here: the sbert variants are not ported yet.
+device, and ``raw_text`` (a list of str) stays on the host. ``text`` holds
+char tokens, or for the sbert text path pseudo-embeddings keyed by
+Python's ``hash()`` of the string, as in the JAX package: ``hash`` is
+salted per process, so they change between processes unless
+``PYTHONHASHSEED`` is set.
 """
 
 from __future__ import annotations
@@ -90,10 +93,6 @@ class SyntheticPatchDataset:
                  seed: int = 0, text_dependent: bool = True,
                  texts: list = None, text_vocab: int = 0,
                  text_tile: bool = False, structured: bool = False):
-        if cfg.text_encoder == "sbert":
-            raise NotImplementedError(
-                "the sbert text path is not ported yet (ROADMAP.md, "
-                "'Modules to port')")
         self.cfg = cfg
         self.num_samples = num_samples
         self.rng = np.random.default_rng(seed)
@@ -155,6 +154,12 @@ class SyntheticPatchDataset:
         self.tokenizer = CharTokenizer(alphabet, cfg.max_text_len)
 
     def text_batch(self, idx: np.ndarray) -> np.ndarray:
+        if self.cfg.text_encoder == "sbert":
+            out = np.zeros((len(idx), self.cfg.sbert_dim), np.float32)
+            for row, i in enumerate(idx):
+                r = np.random.default_rng(abs(hash(self.texts[i])) % (2**32))
+                out[row] = r.normal(0, 1, self.cfg.sbert_dim)
+            return out
         return self.tokenizer.encode([self.texts[i] for i in idx])
 
     def batch(self, batch_size: int, step: int = 0) -> dict:

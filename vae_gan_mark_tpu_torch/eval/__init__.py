@@ -20,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vae_gan_mark_tpu_torch.data import as_batch_tensor
+
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
          max_val: float = 1.0) -> torch.Tensor:
@@ -65,8 +67,8 @@ def render_full_image(model, image, mask_image, quad, text,
     """Full-image inference: crop ``quad`` -> generate -> paste back.
 
     image: (H, W, 3) float in [0, 1] or uint8; mask_image: (H, W, 1);
-    quad: (4, 2) corners; text: (L,) tokens. Returns the full image, float32,
-    with the region re-rendered.
+    quad: (4, 2) corners; text: (L,) tokens or an (sbert_dim,) embedding.
+    Returns the full image, float32, with the region re-rendered.
     """
     from vae_gan_mark_tpu_torch.ops.warp import (
         perspective_crop_batch, perspective_unwarp)
@@ -86,8 +88,8 @@ def render_full_image(model, image, mask_image, quad, text,
                                 cfg.patch_w)
     mk = perspective_crop_batch(msk[None], quad[None], cfg.patch_h,
                                 cfg.patch_w)
-    tokens = torch.as_tensor(np.asarray(text), dtype=torch.long,
-                             device=device)[None]
+    text = as_batch_tensor("text", torch.as_tensor(np.asarray(text)))
     fake, _, _ = generate_patch(model, {"ru": ru, "mask": mk,
-                                        "text": tokens}, generator)
+                                        "text": text.to(device)[None]},
+                                generator)
     return perspective_unwarp(fake[0], quad, img, h_src, w_src)

@@ -11,8 +11,10 @@ synthetic val set with ``--synthetic``, with the config's final KL weight,
 and prints one JSON line of sample-weighted metrics: recon L1, PSNR, masked
 L1, mark recovery and, for full-loss configs, the G, D, KL, GAN and
 perceptual losses. Batch ``i`` draws its noise from ``(seed, i, step)``, as
-the trainer's validation does. The card is used unless ``--device cpu`` is
-given.
+the trainer's validation does. For vanilla and lr_sh the texts of an
+on-disk dataset are embedded with the cached SBERT model;
+``--allow-hash-embed`` accepts ``hash_embed`` when there is none. The card
+is used unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -55,12 +57,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "training run's setting)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--allow-hash-embed", action="store_true",
+                   help="evaluate an sbert-variant checkpoint on disk data "
+                        "with the hash_embed fallback when the SBERT model "
+                        "is not cached locally (the metrics will not be "
+                        "the trained model's; without it a missing SBERT "
+                        "model is an error)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL")
     add_device_flag(p)
     return p
 
 
-def batches(cfg, args):
+def batches(cfg, args, text_embed_fn=None):
     bs = cfg.batch_size
     if args.synthetic:
         from vae_gan_mark_tpu_torch.data.synthetic import (
@@ -83,6 +91,7 @@ def batches(cfg, args):
     _, val_idx = grouped_split(samples, cfg.val_split, cfg.split_seed)
     yield from HostWarpLoader(cfg, samples, val_idx, batch_size=bs,
                               shuffle=False, drop_last=False, seed=args.seed,
+                              text_embed_fn=text_embed_fn,
                               cache_dir=args.patch_cache)(0)
 
 
@@ -90,7 +99,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from vae_gan_mark_tpu_torch.cli import check_variant, parse_overrides
+    from vae_gan_mark_tpu_torch.cli import parse_overrides
     from vae_gan_mark_tpu_torch.config import VariantConfig, get_config
     from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
     from vae_gan_mark_tpu_torch.ops.precision import torch_dtype
@@ -106,11 +115,17 @@ def main(argv=None):
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
     cfg = get_config(args.variant, **overrides)
-    check_variant(cfg)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to evaluate on the CPU")
+    text_embed_fn = None
+    if cfg.text_encoder == "sbert" and not args.synthetic:
+        # The trainer's embedder for on-disk texts; hash_embed only when
+        # asked for.
+        from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
+        text_embed_fn = make_text_embedder(
+            require_sbert=not args.allow_hash_embed)
 
     saved = load_state_file(args.workdir, args.checkpoint)
     if saved is None:
@@ -127,7 +142,7 @@ def main(argv=None):
     eval_step = build_eval_step(cfg)
 
     sums, n = None, 0
-    for i, batch in enumerate(batches(cfg, args)):
+    for i, batch in enumerate(batches(cfg, args, text_embed_fn)):
         if batch is None:
             continue
         if args.shuffle_text:

@@ -1,7 +1,13 @@
-"""U-Net-style decoder with SpatialFiLM at every stage (v2, oldv) or without
-it (unet), and with oldv's gated skips, NCHW.
+"""Decoders (NCHW): the plain conv-transpose stack (vanilla, lr_sh) and the
+U-Net-style decoder.
 
-Submodule names follow the reference's state-dict keys (``bottleneck_proc``,
+``PlainDecoder`` keeps the reference's ``decode`` ``nn.Sequential``
+indices: [ConvTranspose, BN, ReLU] per width at 0, 1 / 3, 4 / ..., then the
+k3 conv to RGB and the sigmoid (15, 16 with five widths).
+
+``UNetStyleDecoder`` has SpatialFiLM at every stage (v2, oldv) or none
+(unet), and oldv's gated skips. Submodule names follow the reference's
+state-dict keys (``bottleneck_proc``,
 ``up_tconv{n}``, ``spatial_film{n}``, ``conv_block{n}``,
 ``final_image_conv``; ``skip_gates.{i}``, where i = 0 is the deepest);
 stage n = 1 is the deepest.
@@ -25,6 +31,30 @@ from vae_gan_mark_tpu_torch.ops.convblocks import (
     Conv2d, DoubleConvBlock, TConv, TConvBNRelu)
 from vae_gan_mark_tpu_torch.ops.film import GatedSkip, SpatialFiLM
 from vae_gan_mark_tpu_torch.ops.resize import interpolate_bilinear
+
+
+class PlainDecoder(nn.Module):
+    """(B, in_ch, 1, 1) -> (B, out_ch, H, W) in (0, 1), in ``dtype``: a
+    ConvTranspose whose kernel is the full latent extent (latent_h,
+    latent_w), stride 1, padding 0 (the inverse of the encoder's heads),
+    then k4 s2 p1 ConvTransposes through ``chans[1:]``, each with BN and
+    ReLU, a k3 p1 conv to ``out_ch`` and a sigmoid."""
+
+    def __init__(self, in_ch: int, latent_h: int, latent_w: int,
+                 chans: Sequence[int], out_ch: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        layers = list(TConvBNRelu(in_ch, chans[0], (latent_h, latent_w),
+                                  dtype=dtype))
+        for prev, c in zip(chans, chans[1:]):
+            layers.extend(TConvBNRelu(prev, c, 4, stride=2, padding=1,
+                                      dtype=dtype))
+        layers += [Conv2d(chans[-1], out_ch, 3, padding=1, dtype=dtype),
+                   nn.Sigmoid()]
+        self.decode = nn.Sequential(*layers)
+
+    def forward(self, zc: torch.Tensor) -> torch.Tensor:
+        return self.decode(zc)
 
 
 class UNetStyleDecoder(nn.Module):

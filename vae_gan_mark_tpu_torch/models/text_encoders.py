@@ -1,11 +1,15 @@
-"""Character text encoders: PAD-masked embedding -> 2-layer BiGRU -> adaptive
+"""Text encoders.
+
+``SbertProjector`` (vanilla, lr_sh) is the trainable 384 -> 64 Linear
+``fc`` over a sentence embedding made on the host (``data/text_embed.py``).
+The character encoders: PAD-masked embedding -> 2-layer BiGRU -> adaptive
 pool to W/16 columns (``CharTextEncoder``, v2 and unet); oldv's
 ``CharTextEncoderPosEnc`` adds a Conv1d over the sequence, a broadcast to a
-map of height 4 and a learnable positional encoding.
+map of height 4 and a learnable positional encoding. Tokenisation happens
+on the host (``data/tokenizer.py``); they take int token ids.
 
-Submodule names follow the reference's state-dict keys (``embedding``,
-``rnn.weight_ih_l0`` ..., ``conv1d.weight``, ``pos_enc``). Tokenisation
-happens on the host (``data/tokenizer.py``); the modules take int token ids.
+Submodule names follow the reference's state-dict keys (``fc``,
+``embedding``, ``rnn.weight_ih_l0`` ..., ``conv1d.weight``, ``pos_enc``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,21 @@ from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.pool import adaptive_avg_pool1d
 from vae_gan_mark_tpu_torch.ops.rnn import BiGRU
+
+
+class SbertProjector(nn.Module):
+    """(B, sbert_dim) embeddings -> (B, out_dim) in ``dtype``."""
+
+    def __init__(self, sbert_dim: int = 384, out_dim: int = 64,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.fc = nn.Linear(sbert_dim, out_dim)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.linear(emb.to(dt), self.fc.weight.to(dt),
+                        self.fc.bias.to(dt))
 
 
 class _CharEmbedGRU(nn.Module):

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from vae_gan_mark_tpu_torch.ops.convblocks import Conv2d, max_pool_2x2
+from vae_gan_mark_tpu_torch.ops.convblocks import (
+    Conv2d, max_pool_2x2, nhwc_to_nchw)
 
 # features[:16]: channel widths per conv, "M" = 2x2 max pool.
 VGG16_HEAD_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256)
@@ -52,4 +53,4 @@ class VGG16Features(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = (x.float() - self.mean) / self.std
-        return self.net(x.to(self.dtype).permute(0, 3, 1, 2))
+        return self.net(nhwc_to_nchw(x.to(self.dtype)))

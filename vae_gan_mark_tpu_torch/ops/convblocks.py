@@ -23,6 +23,15 @@ from vae_gan_mark_tpu_torch.ops.norms import BatchNorm
 _Pair = Union[int, Tuple[int, int]]
 
 
+def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC batch as NCHW: a view on the card (the convolutions there run
+    channels-last), a copy in NCHW memory on the CPU, whose convolutions on
+    a channels-last view computed D's weight gradients 2.6e-2 off float64
+    (oneDNN on a Xeon CPU with AMX; tests/test_torch_port_cond_disc.py)."""
+    x = x.permute(0, 3, 1, 2)
+    return x if x.is_cuda else x.contiguous()
+
+
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(kernel_size=2, stride=2)."""
     return F.max_pool2d(x, 2, 2)

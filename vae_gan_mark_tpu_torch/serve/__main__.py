@@ -9,8 +9,9 @@ checkpoint of the port.
 The full-image path crops the quad, generates the patch and pastes it back
 (``InferenceEngine.render``). ``--checkpoint`` picks ``best_model``
 (default) or ``last_checkpoint``; ``--set`` overrides config fields and must
-match the training run's. The card is used unless ``--device cpu`` is
-given.
+match the training run's. For vanilla and lr_sh the text is embedded with
+the cached SBERT model; ``--allow-hash-embed`` accepts ``hash_embed`` when
+there is none. The card is used unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True, help="output PNG path")
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--allow-hash-embed", action="store_true",
+                   help="serve an sbert-variant checkpoint with the "
+                        "deterministic hash_embed fallback when the SBERT "
+                        "model is not cached locally (the output will not "
+                        "match training; without it a missing SBERT model "
+                        "is an error)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VAL")
     add_device_flag(p)
     return p
@@ -49,21 +56,28 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     from PIL import Image
 
-    from vae_gan_mark_tpu_torch.cli import check_variant, parse_overrides
+    from vae_gan_mark_tpu_torch.cli import parse_overrides
     from vae_gan_mark_tpu_torch.config import VariantConfig, get_config
     from vae_gan_mark_tpu_torch.serve.engine import InferenceEngine
 
     args = build_parser().parse_args(argv)
     cfg = get_config(args.variant,
                      **parse_overrides(VariantConfig, args.set))
-    check_variant(cfg)
     quad = np.asarray([float(x) for x in args.quad.split(",")],
                       np.float32).reshape(4, 2)
     image = np.asarray(Image.open(args.image).convert("RGB"))
     mask = np.asarray(Image.open(args.mask).convert("L"))
+    text_embed_fn = None
+    if cfg.text_encoder == "sbert":
+        # The embeddings the checkpoint was trained on; hash_embed only
+        # when asked for.
+        from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
+        text_embed_fn = make_text_embedder(
+            require_sbert=not args.allow_hash_embed)
     engine = InferenceEngine.from_checkpoint(
         cfg, args.workdir, name=args.checkpoint,
-        batch_size=args.batch_size, seed=args.seed, device=args.device)
+        batch_size=args.batch_size, seed=args.seed, device=args.device,
+        text_embed_fn=text_embed_fn)
     out = engine.render(image, mask, quad, args.text)
     out8 = np.clip(np.asarray(out) * 255.0, 0, 255).astype(np.uint8)
     Image.fromarray(out8).save(args.out)

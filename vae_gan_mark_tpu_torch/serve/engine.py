@@ -17,12 +17,14 @@ renders one image with it.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Union
+from typing import Callable, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.data import as_batch_tensor
+from vae_gan_mark_tpu_torch.data.text_embed import encode_texts
 from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
 from vae_gan_mark_tpu_torch.ops.warp import (
@@ -40,13 +42,16 @@ class InferenceEngine:
 
     ``weights`` is a ``VAEGANGenerator`` or its ``state_dict``. ``device``
     defaults to ``"cuda"`` and raises when no card is present: it never runs
-    on the CPU unless asked to.
+    on the CPU unless asked to. ``text_embed_fn`` (texts -> (N, sbert_dim))
+    embeds the texts for the sbert text path; without it they go through
+    ``hash_embed``.
     """
 
     def __init__(self, cfg: VariantConfig,
                  weights: Union[VAEGANGenerator, Mapping[str, torch.Tensor]],
                  batch_size: int = 16, seed: int = 0,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 text_embed_fn: Optional[Callable] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -56,6 +61,7 @@ class InferenceEngine:
         self.batch_size = batch_size
         self.seed = seed
         self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
+        self.text_embed_fn = text_embed_fn
         if isinstance(weights, VAEGANGenerator):
             model = weights
         else:
@@ -67,7 +73,8 @@ class InferenceEngine:
     def from_checkpoint(cls, cfg: VariantConfig, workdir: str,
                         name: str = "best_model", batch_size: int = 16,
                         seed: int = 0,
-                        device: Union[str, torch.device] = "cuda"
+                        device: Union[str, torch.device] = "cuda",
+                        text_embed_fn: Optional[Callable] = None
                         ) -> "InferenceEngine":
         """The generator of checkpoint ``workdir/name`` (its BatchNorm
         statistics included); the discriminator and the optimizers in the
@@ -77,9 +84,15 @@ class InferenceEngine:
         if saved is None:
             raise FileNotFoundError(f"no checkpoint {name} in {workdir}")
         return cls(cfg, saved["generator"], batch_size=batch_size, seed=seed,
-                   device=device)
+                   device=device, text_embed_fn=text_embed_fn)
 
     # ------------------------------------------------------------------
+    def _encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        """(N, sbert_dim) float32 embeddings for the sbert text path, else
+        (N, max_len) int32 tokens."""
+        return encode_texts(self.cfg, self.tokenizer, self.text_embed_fn,
+                            texts)
+
     def _pad(self, arr: np.ndarray) -> np.ndarray:
         n = arr.shape[0]
         if n == self.batch_size:
@@ -108,14 +121,14 @@ class InferenceEngine:
         for start in range(0, n, self.batch_size):
             end = min(start + self.batch_size, n)
             m = end - start
-            tokens = self.tokenizer.encode(
+            text = self._encode_texts(
                 texts[start:end] + [""] * (self.batch_size - m))
             recon, _, _ = self.model(
                 self._to_device(self._pad(np.asarray(ru[start:end],
                                                      np.float32))),
                 self._to_device(self._pad(np.asarray(mask[start:end],
                                                      np.float32))),
-                self._to_device(tokens.astype(np.int64)),
+                as_batch_tensor("text", self._to_device(text)),
                 eps=self.noise(start).to(self.device))
             outs.append(recon[:m].cpu().numpy())
         return np.concatenate(outs, axis=0)

@@ -4,8 +4,8 @@
 
 * the train steps over a data source, a callable ``epoch -> iterator of
   batches`` (dicts with ``ru``, ``en``, ``mask``: NHWC float32 in [0, 1],
-  ``text``: tokens, optionally ``eps`` and the host-only ``raw_text``),
-  with the epoch's annealed KL weight;
+  ``text``: int tokens or float sentence embeddings, optionally ``eps``
+  and the host-only ``raw_text``), with the epoch's annealed KL weight;
 * validation with the config's eval step, and up to 16 val triplets with
   their target text as captions;
 * ReduceLROnPlateau on the val reconstruction loss, for both optimizers;
@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.data import as_batch_tensor
 from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
 from vae_gan_mark_tpu_torch.ops.precision import torch_dtype
 from vae_gan_mark_tpu_torch.train.checkpoint import (
@@ -199,8 +200,8 @@ class Trainer:
             if isinstance(value, torch.Tensor):
                 out[key] = value.to(self.device)     # no copy when there
                 continue
-            t = torch.as_tensor(np.ascontiguousarray(value))
-            t = t.long() if key == "text" else t.float()
+            t = as_batch_tensor(key, torch.as_tensor(
+                np.ascontiguousarray(value)))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[key] = t

@@ -37,7 +37,8 @@ from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.models.discriminator import PatchDiscriminator
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
 from vae_gan_mark_tpu_torch.utils.port_jax import (  # noqa: F401
-    init_state_dicts, init_vgg_state_dict, vgg_state_dict_from_jax)
+    disc_cond_args, init_state_dicts, init_vgg_state_dict,
+    vgg_state_dict_from_jax)
 
 # Ported torchvision VGG16 weights, when present (``tools/port_vgg16.py``
 # writes them: ``conv{i}_kernel`` HWIO and ``conv{i}_bias``).
@@ -153,8 +154,7 @@ def create_train_state(
             f"create_train_state(device={str(device)!r}): no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     generator = VAEGANGenerator(cfg)
-    discriminator = PatchDiscriminator(
-        cond_vocab=cfg.vocab_size if cfg.conditional_disc else 0)
+    discriminator = PatchDiscriminator(**disc_cond_args(cfg))
     generator.load_state_dict(g_state_dict)
     discriminator.load_state_dict(d_state_dict)
     return TrainState(cfg, generator.to(device), discriminator.to(device))

@@ -47,9 +47,14 @@ package runs its float32 work (D, the GRU, their gradients) at HIGH or
 HIGHEST precision; so TF32 stays off for the whole step, backward included.
 BatchNorm statistics, the KL term and the losses are float32.
 
+With ``cfg.conditional_disc`` every discriminator forward also takes the
+batch's ``text`` as its ``cond`` (the fused forward the text twice, once for
+the real and once for the fake half), as the JAX step does.
+
 A batch is a dict of tensors on one device: ``ru``, ``en`` (B, H, W, 3),
-``mask`` (B, H, W, 1) float32, ``text`` (B, L) int64, optionally ``eps``
-(B, 1, 1, z_ch); ``batch_to_device`` makes one from numpy arrays.
+``mask`` (B, H, W, 1) float32, ``text`` (B, L) int64 tokens or
+(B, sbert_dim) float32 embeddings, optionally ``eps`` (B, 1, 1, z_ch);
+``batch_to_device`` makes one from numpy arrays.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.data import as_batch_tensor
 from vae_gan_mark_tpu_torch.eval import mark_recovery_rate, masked_l1
 from vae_gan_mark_tpu_torch.losses import (
     hinge_d_fake, hinge_d_real, hinge_g, kl_divergence, l1_loss,
@@ -89,13 +95,12 @@ def make_generator(device: torch.device, *keys: int) -> torch.Generator:
 
 def batch_to_device(batch: Mapping[str, np.ndarray],
                     device: Union[str, torch.device]) -> Batch:
-    """numpy batch -> tensors on ``device`` (``text`` as int64)."""
+    """numpy batch -> tensors on ``device`` (``as_batch_tensor``)."""
     out = {}
     for key in ("ru", "en", "mask", "text", "eps"):
         if key in batch:
             value = torch.from_numpy(np.ascontiguousarray(batch[key]))
-            value = value.long() if key == "text" else value.float()
-            out[key] = value.to(device)
+            out[key] = as_batch_tensor(key, value).to(device)
     return out
 
 
@@ -114,6 +119,8 @@ def build_train_step(cfg: VariantConfig):
         g_model.train()
         d_model.train()
         real = batch["en"]
+        # The conditional D judges real and fake against the same text.
+        cond = batch["text"] if cfg.conditional_disc else None
         with precision_scope(torch.float32):
             # 1. Generator forward; its backward runs once, in phase 3.
             fake, mu, logvar = g_model(batch["ru"], batch["mask"],
@@ -123,11 +130,13 @@ def build_train_step(cfg: VariantConfig):
             # 2. Discriminator update.
             fake_sg = fake.detach()
             if cfg.fused_disc_forward:
-                preds = d_model(torch.cat([real, fake_sg]).to(dtype))
+                preds = d_model(torch.cat([real, fake_sg]).to(dtype),
+                                None if cond is None
+                                else torch.cat([cond, cond]))
                 real_preds, fake_preds = preds.chunk(2)
             else:
-                real_preds = d_model(real.to(dtype))
-                fake_preds = d_model(fake_sg.to(dtype))
+                real_preds = d_model(real.to(dtype), cond)
+                fake_preds = d_model(fake_sg.to(dtype), cond)
             loss_d = 0.5 * (hinge_d_real(real_preds)
                             + hinge_d_fake(fake_preds))
             state.opt_d.zero_grad(set_to_none=True)
@@ -137,7 +146,7 @@ def build_train_step(cfg: VariantConfig):
             # 3. Generator update against the updated discriminator.
             d_model.requires_grad_(False)
             try:
-                fake_preds = d_model(fake.to(dtype))
+                fake_preds = d_model(fake.to(dtype), cond)
                 recon_l = l1_loss(fake, real)
                 kl = kl_divergence(mu, logvar)
                 gan = hinge_g(fake_preds)
@@ -179,8 +188,9 @@ def build_eval_step(cfg: VariantConfig):
                 "masked_l1": masked_l1(fake, real, mask),
                 "mark_recovery": mark_recovery_rate(fake, real, mask)}
             if cfg.full_loss_val:
-                fake_preds = d_model(fake.to(dtype), update_sn=False)
-                real_preds = d_model(real.to(dtype), update_sn=False)
+                cond = batch["text"] if cfg.conditional_disc else None
+                fake_preds = d_model(fake.to(dtype), cond, update_sn=False)
+                real_preds = d_model(real.to(dtype), cond, update_sn=False)
                 gan = hinge_g(fake_preds)
                 perc = perceptual_loss(vgg, fake, real)
                 metrics.update({
@@ -206,7 +216,10 @@ class _Replay:
 
     def __init__(self, kind: str, cfg: VariantConfig):
         self.kind = kind
-        self.hidden = cfg.char_rnn_hidden
+        # The GRU kernels' host work is done before a capture, for configs
+        # whose generator runs them (the char text paths).
+        self.hidden = (cfg.char_rnn_hidden if cfg.text_encoder != "sbert"
+                       else None)
         self.graph: Optional[CapturedStep] = None
         self.owner: Tuple = ()
 
@@ -222,9 +235,10 @@ class _Replay:
                     self.kind == "train" and not _adam_ready(state)):
                 return None
             rows = batch["ru"].shape[0]
-            gru.KERNEL.prepare(rows, self.hidden)
-            if self.kind == "train":
-                gru.BACKWARD_KERNEL.prepare(rows, self.hidden)
+            if self.hidden is not None:
+                gru.KERNEL.prepare(rows, self.hidden)
+                if self.kind == "train":
+                    gru.BACKWARD_KERNEL.prepare(rows, self.hidden)
             self.graph = CapturedStep(capture, batch)
             self.owner = (state, vgg)
         if self.owner[0] is not state or self.owner[1] is not vgg:

@@ -6,15 +6,18 @@ power-iteration ``u`` of every spectral conv) and the frozen VGG16 head
 
 The port's keys are the reference's (``style_vae_encoder_module.e_conv1.0
 .weight``, ``char_text_encoder_module.rnn.weight_hh_l0_reverse``,
-``body.0.weight_orig``, ``net.0.weight`` ...), so the JAX package's
-``utils/port_torch.py`` functions ``port_v2_generator``,
-``port_discriminator`` and ``port_vgg_head`` are this bridge's inverses.
+``encoder.feat.0.weight``, ``decoder.decode.15.bias``, ``text_encoder.fc
+.weight``, ``body.0.weight_orig``, ``net.0.weight`` ...), so the JAX
+package's ``utils/port_torch.py`` functions ``port_v2_generator``,
+``port_vanilla_generator``, ``port_discriminator`` and ``port_vgg_head``
+are this bridge's inverses.
 Layout changes:
 
 * Conv kernels HWIO -> OIHW.
 * ConvTranspose kernels: flip both spatial axes, then (kh, kw, in, out) ->
   (in, out, kh, kw).
-* GRU ``w_ih`` (in, 3H) and ``w_hh`` (H, 3H) transposed to torch's (3H, .).
+* GRU ``w_ih`` (in, 3H) and ``w_hh`` (H, 3H) transposed to torch's (3H, .);
+  Dense kernels (in, out) transposed to ``nn.Linear``'s (out, in).
 * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var.
 * oldv: the text encoder's Conv1d kernel (k, in, out) -> (out, in, k), its
   ``pos_enc`` (1, h, w, C) -> (1, C, h, w), a gated skip's ``alpha`` (C,)
@@ -22,10 +25,14 @@ Layout changes:
 
 One table per network (``_entries``, ``_disc_entries``, ``_vgg_entries``)
 lists every leaf with its JAX path, its port key, its layout change and its
-JAX shape; the bridge and the seeded random init both read it. Covers the
-char-conditioned U-Net generators (v2 with FiLM, unet without, oldv with
-gated skips and the positional text encoder), the
-unconditional discriminator and VGG16 ``features[:16]``. The seeded trees
+JAX shape; the bridge and the seeded random init both read it. Covers every
+generator: the plain one with the sbert projection (vanilla, lr_sh; the
+JAX package's ``port_vanilla_generator`` is its inverse), the
+char-conditioned U-Nets (v2 with FiLM, unet without, oldv with gated skips
+and the positional text encoder), and their mixes (the encoder follows
+``cfg.generator``, the text path and decoder ``cfg.text_encoder``); the
+discriminator, with the conditional head's leaves when
+``cfg.conditional_disc`` (``disc_cond_args``); and VGG16 ``features[:16]``. The seeded trees
 stand in for weights that cannot be reproduced with torch's RNG (the JAX
 initialisers, VGG's fixed ``PRNGKey(16)``), so that a run without JAX can
 build every network: ``random_*`` are test weights (He kernels, random
@@ -35,12 +42,15 @@ training init from the JAX initializers' distributions.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
+from vae_gan_mark_tpu_torch.models.discriminator import COND_CH
+from vae_gan_mark_tpu_torch.models.vaegan import (
+    module_names, plain_decoder_chans)
 from vae_gan_mark_tpu_torch.models.vgg import VGG16_HEAD_CFG
 
 Tree = Dict[str, object]
@@ -73,31 +83,64 @@ def _double_conv(jp, sp, cin, cout):
         yield from _bn(block + ("BatchNorm_0",), f"{sp}.{bn_idx}", cout)
 
 
-def _entries(cfg: VariantConfig) -> Iterator[Entry]:
-    if cfg.generator not in ("film4", "film3", "unet") or \
-            cfg.text_encoder not in ("char", "char_posenc"):
-        raise NotImplementedError(
-            f"the weight bridge covers the v2, unet and oldv generators, not "
-            f"{cfg.generator!r}/{cfg.text_encoder!r}")
-    levels = cfg.num_levels
-    text_ch = 2 * cfg.char_rnn_hidden
+def _latent_heads(jp, sp, cfg: VariantConfig, in_ch: int):
+    for head in ("mu_head", "logvar_head"):
+        hp = jp + ("_LatentHeads_0", head)
+        yield Entry("params", hp + ("kernel",), f"{sp}.{head}.weight", "conv",
+                    (cfg.latent_h, cfg.latent_w, in_ch, cfg.z_ch))
+        yield Entry("params", hp + ("bias",), f"{sp}.{head}.bias", "plain",
+                    (cfg.z_ch,))
 
-    enc, sp = ("encoder",), "style_vae_encoder_module"
-    prev = cfg.in_ch
+
+def _tconv_bn(jp, sp, tconv_idx, bn_idx, kernel_hw, cin, cout):
+    """A ``TConvBNRelu``: ConvTranspose at ``tconv_idx``, BN at ``bn_idx``
+    of the Sequential ``sp``."""
+    tp = jp + ("TConv_0", "ConvTranspose_0")
+    yield Entry("params", tp + ("kernel",), f"{sp}.{tconv_idx}.weight",
+                "tconv", tuple(kernel_hw) + (cin, cout))
+    yield Entry("params", tp + ("bias",), f"{sp}.{tconv_idx}.bias", "plain",
+                (cout,))
+    yield from _bn(jp + ("BatchNorm_0",), f"{sp}.{bn_idx}", cout)
+
+
+def _plain_encoder(cfg: VariantConfig, sp: str):
+    """``PlainEncoder``: [Conv, BN, ReLU] per width at ``feat`` indices
+    0, 1 / 3, 4 / ..., then the latent heads."""
+    enc, prev = ("encoder",), cfg.in_ch
+    for i, c in enumerate(cfg.enc_chans):
+        jp = enc + (f"ConvBNRelu_{i}",)
+        yield Entry("params", jp + ("Conv_0", "kernel"),
+                    f"{sp}.feat.{3 * i}.weight", "conv", (3, 3, prev, c))
+        yield Entry("params", jp + ("Conv_0", "bias"),
+                    f"{sp}.feat.{3 * i}.bias", "plain", (c,))
+        yield from _bn(jp + ("BatchNorm_0",), f"{sp}.feat.{3 * i + 1}", c)
+        prev = c
+    yield from _latent_heads(enc, sp, cfg, prev)
+
+
+def _unet_encoder(cfg: VariantConfig, sp: str):
+    enc, prev = ("encoder",), cfg.in_ch
     for i, c in enumerate(cfg.enc_chans):
         yield from _double_conv(enc + (f"DoubleConvBlock_{i}",),
                                 f"{sp}.e_conv{i + 1}", prev, c)
         prev = c
-    yield from _double_conv(enc + (f"DoubleConvBlock_{levels}",),
+    yield from _double_conv(enc + (f"DoubleConvBlock_{cfg.num_levels}",),
                             f"{sp}.bottleneck_conv", prev, cfg.bottleneck_ch)
-    for head in ("mu_head", "logvar_head"):
-        jp = enc + ("_LatentHeads_0", head)
-        yield Entry("params", jp + ("kernel",), f"{sp}.{head}.weight", "conv",
-                    (cfg.latent_h, cfg.latent_w, cfg.bottleneck_ch, cfg.z_ch))
-        yield Entry("params", jp + ("bias",), f"{sp}.{head}.bias", "plain",
-                    (cfg.z_ch,))
+    yield from _latent_heads(enc, sp, cfg, cfg.bottleneck_ch)
 
-    txt, sp = ("text_encoder", "_CharEmbedGRU_0"), "char_text_encoder_module"
+
+def _sbert_text(cfg: VariantConfig, sp: str):
+    """``SbertProjector``: one Dense, sbert_dim -> text_ch, at ``fc``."""
+    jp = ("text_encoder", "Dense_0")
+    yield Entry("params", jp + ("kernel",), f"{sp}.fc.weight", "dense",
+                (cfg.sbert_dim, cfg.text_ch))
+    yield Entry("params", jp + ("bias",), f"{sp}.fc.bias", "plain",
+                (cfg.text_ch,))
+
+
+def _char_text(cfg: VariantConfig, sp: str):
+    txt = ("text_encoder", "_CharEmbedGRU_0")
+    text_ch = 2 * cfg.char_rnn_hidden
     yield Entry("params", txt + ("Embed_0", "embedding"),
                 f"{sp}.embedding.weight", "plain",
                 (cfg.vocab_size, cfg.char_emb_dim))
@@ -125,15 +168,31 @@ def _entries(cfg: VariantConfig) -> Iterator[Entry]:
                     "nhwc", (1, cfg.text_feature_height,
                              cfg.text_feature_width, text_ch))
 
-    dec, sp = ("decoder",), "image_vae_decoder_module"
-    jp = dec + ("TConvBNRelu_0",)
-    yield Entry("params", jp + ("TConv_0", "ConvTranspose_0", "kernel"),
-                f"{sp}.bottleneck_proc.0.weight", "tconv",
-                (cfg.latent_h, 1, cfg.z_ch + text_ch, cfg.bottleneck_ch))
-    yield Entry("params", jp + ("TConv_0", "ConvTranspose_0", "bias"),
-                f"{sp}.bottleneck_proc.0.bias", "plain", (cfg.bottleneck_ch,))
-    yield from _bn(jp + ("BatchNorm_0",), f"{sp}.bottleneck_proc.1",
-                   cfg.bottleneck_ch)
+
+def _plain_decoder(cfg: VariantConfig, sp: str):
+    """``PlainDecoder``: [ConvTranspose, BN, ReLU] per width at ``decode``
+    indices 0, 1 / 3, 4 / ..., the RGB conv after them."""
+    dec = ("decoder",)
+    chans = plain_decoder_chans(cfg)
+    prev, kernel = cfg.z_ch + cfg.text_ch, (cfg.latent_h, cfg.latent_w)
+    for i, c in enumerate(chans):
+        yield from _tconv_bn(dec + (f"TConvBNRelu_{i}",), f"{sp}.decode",
+                             3 * i, 3 * i + 1, kernel, prev, c)
+        prev, kernel = c, (4, 4)
+    last = 3 * len(chans)
+    yield Entry("params", dec + ("Conv_0", "kernel"),
+                f"{sp}.decode.{last}.weight", "conv",
+                (3, 3, prev, cfg.out_ch))
+    yield Entry("params", dec + ("Conv_0", "bias"),
+                f"{sp}.decode.{last}.bias", "plain", (cfg.out_ch,))
+
+
+def _unet_decoder(cfg: VariantConfig, sp: str):
+    dec = ("decoder",)
+    text_ch = 2 * cfg.char_rnn_hidden
+    yield from _tconv_bn(dec + ("TConvBNRelu_0",), f"{sp}.bottleneck_proc",
+                         0, 1, (cfg.latent_h, 1), cfg.z_ch + text_ch,
+                         cfg.bottleneck_ch)
     prev = cfg.bottleneck_ch
     for i, c in enumerate(reversed(cfg.enc_chans)):
         n = i + 1
@@ -166,13 +225,40 @@ def _entries(cfg: VariantConfig) -> Iterator[Entry]:
                 f"{sp}.final_image_conv.bias", "plain", (cfg.out_ch,))
 
 
+def _entries(cfg: VariantConfig) -> Iterator[Entry]:
+    """The generator's leaves: the encoder by ``cfg.generator``, the text
+    path and the decoder by ``cfg.text_encoder``, as the JAX package's
+    ``VAEGANGenerator`` chooses them."""
+    enc, text, dec = module_names(cfg)
+    yield from (_plain_encoder if cfg.generator == "plain"
+                else _unet_encoder)(cfg, enc)
+    if cfg.text_encoder == "sbert":
+        yield from _sbert_text(cfg, text)
+        yield from _plain_decoder(cfg, dec)
+    else:
+        yield from _char_text(cfg, text)
+        yield from _unet_decoder(cfg, dec)
+
+
 DISC_CHANS = (3, 64, 128, 256, 512)
 
 
-def _disc_entries() -> Iterator[Entry]:
-    """The unconditional ``PatchDiscriminator``: spectral convs at the
-    reference's indices 0, 2, 5, 8, InstanceNorms at 3, 6, 9, the final conv
-    at 11."""
+def disc_cond_args(cfg: Optional[VariantConfig]) -> Dict[str, int]:
+    """``PatchDiscriminator``'s keyword arguments for ``cfg``: the head when
+    ``cfg.conditional_disc``, with ``cond_vocab = cfg.vocab_size`` for every
+    variant, the sbert ones included (as the JAX package's train state
+    sets it), and the ``cond_dense`` branch for the sbert text path, whose
+    batches carry float embeddings."""
+    if cfg is None or not cfg.conditional_disc:
+        return {}
+    return dict(cond_vocab=cfg.vocab_size,
+                cond_dim=cfg.sbert_dim if cfg.text_encoder == "sbert" else 0)
+
+
+def _disc_entries(cfg: Optional[VariantConfig] = None) -> Iterator[Entry]:
+    """``PatchDiscriminator``: spectral convs at the reference's indices 0,
+    2, 5, 8, InstanceNorms at 3, 6, 9, the final conv at 11; then, for a
+    conditional ``cfg``, the head's leaves."""
     for i, idx in enumerate((0, 2, 5, 8)):
         cin, cout = DISC_CHANS[i], DISC_CHANS[i + 1]
         jp = (f"SpectralConv_{i}",)
@@ -191,6 +277,20 @@ def _disc_entries() -> Iterator[Entry]:
     yield Entry("params", ("Conv_0", "kernel"), "body.11.weight", "conv",
                 (4, 4, DISC_CHANS[-1], 1))
     yield Entry("params", ("Conv_0", "bias"), "body.11.bias", "plain", (1,))
+    cond = disc_cond_args(cfg)
+    if not cond:
+        return
+    if cond["cond_dim"]:
+        yield Entry("params", ("cond_dense", "kernel"), "cond_dense.weight",
+                    "dense", (cond["cond_dim"], COND_CH))
+        yield Entry("params", ("cond_dense", "bias"), "cond_dense.bias",
+                    "plain", (COND_CH,))
+    else:
+        yield Entry("params", ("cond_embed", "embedding"),
+                    "cond_embed.weight", "plain",
+                    (cond["cond_vocab"], COND_CH))
+    yield Entry("params", ("cond_proj", "kernel"), "cond_proj.weight",
+                "dense", (COND_CH, DISC_CHANS[-1]))
 
 
 def _vgg_entries() -> Iterator[Entry]:
@@ -227,7 +327,7 @@ def to_port_layout(kind: str, value: np.ndarray) -> np.ndarray:
         return np.transpose(value, (3, 2, 0, 1))
     if kind == "tconv":
         return np.transpose(value[::-1, ::-1], (2, 3, 0, 1))
-    if kind == "gru":
+    if kind in ("gru", "dense"):           # (in, out) -> (out, in)
         return value.T
     if kind == "conv1d":                    # (k, in, out) -> (out, in, k)
         return np.transpose(value, (2, 1, 0))
@@ -240,11 +340,12 @@ def to_port_layout(kind: str, value: np.ndarray) -> np.ndarray:
 
 def _random_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     name = e.path[-1]
-    if e.kind in ("conv", "tconv", "conv1d"):
-        # He-normal over the fan-in. A stride-equal-to-kernel transposed conv
-        # sums over input channels only.
-        fan_in = (e.shape[2] if e.kind == "tconv"
-                  else int(np.prod(e.shape[:-1])))
+    if e.kind in ("conv", "tconv", "conv1d", "dense"):
+        # He-normal over the fan-in. A transposed conv whose stride equals
+        # its kernel, or whose input is 1 x 1, sums over input channels
+        # only; a k4 s2 one over 4 taps of each.
+        fan_in = (e.shape[2] * (4 if e.shape[:2] == (4, 4) else 1)
+                  if e.kind == "tconv" else int(np.prod(e.shape[:-1])))
         value = rng.normal(0.0, np.sqrt(2.0 / fan_in), e.shape)
     elif name == "alpha":                           # gates around 0.3
         value = rng.uniform(0.0, 0.6, e.shape)
@@ -288,7 +389,7 @@ def _init_leaf(rng: np.random.Generator, e: Entry) -> np.ndarray:
     its norm, oldv's ``pos_enc`` 0.02 * normal(0, 1), and the constants:
     scales and variances one, biases and means zero, gate ``alpha`` 0.3."""
     name = e.path[-1]
-    if e.kind in ("conv", "tconv", "conv1d"):
+    if e.kind in ("conv", "tconv", "conv1d", "dense"):
         fan_in = int(np.prod(e.shape[:-1]))
         value = _truncated_normal(rng, e.shape) * np.float32(
             np.sqrt(1.0 / fan_in) / _TRUNCATED_STD)
@@ -345,10 +446,13 @@ def random_jax_tree(cfg: VariantConfig, seed: int) -> Tuple[Tree, Tree]:
     return trees["params"], trees["batch_stats"]
 
 
-def random_discriminator_tree(seed: int) -> Tuple[Tree, Tree]:
+def random_discriminator_tree(seed: int,
+                              cfg: Optional[VariantConfig] = None
+                              ) -> Tuple[Tree, Tree]:
     """Seeded random (params, spectral) numpy trees in the JAX
-    discriminator's layout; every ``u`` a unit vector."""
-    trees = _random_trees(_disc_entries(), seed)
+    discriminator's layout (with the head for a conditional ``cfg``); every
+    ``u`` a unit vector."""
+    trees = _random_trees(_disc_entries(cfg), seed)
     return trees["params"], trees["spectral"]
 
 
@@ -361,12 +465,12 @@ def random_vgg_tree(seed: int) -> Tree:
 def init_state_dicts(cfg: VariantConfig, seed: int
                      ) -> Tuple[Dict[str, torch.Tensor],
                                 Dict[str, torch.Tensor]]:
-    """A fresh training init: the generator's and the unconditional
-    discriminator's ``state_dict``s drawn with numpy from ``seed``, from the
+    """A fresh training init: the generator's and the discriminator's
+    (with the head when ``cfg.conditional_disc``) ``state_dict``s drawn with numpy from ``seed``, from the
     distributions of the JAX modules' initializers (``_init_leaf``). The
     values differ from a flax init's; the distributions are the same."""
     rng = np.random.default_rng(seed)
-    g_entries, d_entries = list(_entries(cfg)), list(_disc_entries())
+    g_entries, d_entries = list(_entries(cfg)), list(_disc_entries(cfg))
     g = _random_trees(g_entries, int(rng.integers(2 ** 63)), _init_leaf)
     d = _random_trees(d_entries, int(rng.integers(2 ** 63)), _init_leaf)
     return _state_dict(g_entries, g), _state_dict(d_entries, d)
@@ -386,11 +490,13 @@ def state_dict_from_jax(params: Tree, batch_stats: Tree,
                                        "batch_stats": batch_stats})
 
 
-def discriminator_state_dict_from_jax(params: Tree, spectral: Tree
-                                      ) -> Dict[str, torch.Tensor]:
-    """JAX discriminator trees -> ``PatchDiscriminator``'s ``state_dict``."""
-    return _state_dict(_disc_entries(), {"params": params,
-                                         "spectral": spectral})
+def discriminator_state_dict_from_jax(
+        params: Tree, spectral: Tree, cfg: Optional[VariantConfig] = None
+) -> Dict[str, torch.Tensor]:
+    """JAX discriminator trees -> ``PatchDiscriminator``'s ``state_dict``
+    (with the head's leaves for a conditional ``cfg``)."""
+    return _state_dict(_disc_entries(cfg), {"params": params,
+                                            "spectral": spectral})
 
 
 def vgg_state_dict_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
