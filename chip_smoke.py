@@ -90,7 +90,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 12. the conditional D head: v2 with it, 5 bf16 train steps at bs 16 (2 + 2
    GRU launches a step) and one f32 step CUDA against CPU at B=2; vanilla
    with it (the ``cond_dense`` branch), one f32 step CUDA against CPU;
-13. print the kernels' JSON line and, last, the device line.
+13. data parallelism (``parallel/``), v2 at full width with
+   ``cudnn.deterministic``: 4 bf16 steps at bs 16 in one process with an
+   NCCL process group of one against the same steps without a group, bit
+   for bit; two processes on the one card (gloo: NCCL refuses two ranks
+   on one GPU), 8 rows each of the same 16-row batches, 3 f32 steps,
+   against one process at bs 16 (metrics rtol 1e-4, BatchNorm statistics
+   and u atol 1e-5), 2 + 2 GRU launches a step in each process;
+14. the serving artifact (``serve/export.py``): v2 at full width exported
+   in f32 and bf16 at bs 16, each loaded in a fresh process that must not
+   import ``models/`` or ``train/``, 40 requests against
+   ``InferenceEngine.generate`` with the same seed (max abs 1e-5 in f32,
+   2e-2 in bf16), 2 GRU forward launches a chunk inside that process, and
+   img/s of artifact and engine at bs 16; then ``python -m
+   vae_gan_mark_tpu_torch.doctor``, every check ok;
+15. print the kernels' JSON line and, last, the device line.
+
+``python3 chip_smoke.py --dp-worker RANK PORT OUT`` and ``--serve-artifact
+DIR REQUEST OUT`` are phases 13 and 14's child processes.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -2092,6 +2109,366 @@ def phase_cond_disc(gru, card: str) -> dict:
     return result
 
 
+# Phase 13: data parallelism. Two processes at 8 rows against one at 16,
+# float32: the tolerances of tests/test_torch_port_parallel.py (metrics
+# rtol 1e-4, BatchNorm running statistics and D's u atol 1e-5), and both
+# Adams' first moments per tensor within phase 7's L2 limit (tensors below
+# STEP_MOMENT_ZERO of the network's largest, a bias ahead of a norm whose
+# gradient is zero in exact arithmetic, as noise below that on both sides).
+# Both learning rates are 0, so that every step starts from the same
+# parameters on both sides and the comparison holds the step itself:
+# Adam's first update, lr * g / (|g| + eps), turns the processes' other sum
+# order into parameter steps of up to lr where |g| is near eps, and the
+# steps after compound them (a CPU rehearsal of this phase at the tiny
+# geometry read 1.4e-3 relative on the third step's gan_g with the
+# configured rates). The steps still average both networks' gradients,
+# which their moments hold, and move BatchNorm's statistics and u.
+DP_STEPS, DP_METRIC_RTOL, DP_BUFFER_ATOL = 3, 1e-4, 1e-5
+DP_GROUP_STEPS = 4
+# Phase 14: the artifact against the engine, one program and the same
+# kernels; cuDNN may pick other algorithms in the program.
+EXPORT_ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
+EXPORT_REQUESTS = 40
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def child_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONSTARTUP", "MASTER_ADDR", "MASTER_PORT",
+                        "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = ROOT
+    env.update(extra)
+    return env
+
+
+def dp_run(gru, cfg, weights, batches) -> dict:
+    """Train steps on this process's rows of each global batch (all of
+    them without a process group), the GRU counts at 0 just before and
+    read just after; the metrics, G's and D's buffers and the ms a step."""
+    from vae_gan_mark_tpu_torch.parallel import mesh
+    from vae_gan_mark_tpu_torch.train import build_train_step
+    from vae_gan_mark_tpu_torch.train.step import make_generator
+
+    state, vgg = make_trainer(cfg, weights, "cuda")
+    step = build_train_step(cfg)
+    local = [mesh.shard_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    metrics, times = [], []
+    for batch in local:
+        t0 = time.perf_counter()
+        state, m = step(state, vgg, batch,
+                        make_generator(torch.device("cuda"), 7, state.step),
+                        1e-3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    moments = {f"{net}.{name}": opt.state[p]["exp_avg"].cpu()
+               for net, module, opt in (("G", state.generator, state.opt_g),
+                                        ("D", state.discriminator,
+                                         state.opt_d))
+               for name, p in module.named_parameters()}
+    return dict(state=state, metrics=metrics, ms=times, moments=moments,
+                launches=(gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches),
+                buffers={k: v.cpu() for k, v in watched_buffers(state)
+                         .items()})
+
+
+def dp_moment_spread(ref: dict, runs: list) -> tuple:
+    """The largest per-tensor relative L2 difference of the first moments
+    in ``runs`` from ``ref``, per network, over tensors above
+    STEP_MOMENT_ZERO of that network's largest moment; and the largest of
+    the others on either side, relative to that moment."""
+    spread, noise = 0.0, 0.0
+    for net in ("G.", "D."):
+        keys = [k for k in ref if k.startswith(net)]
+        top = max(float(ref[k].abs().max()) for k in keys)
+        for k in keys:
+            if float(ref[k].abs().max()) > STEP_MOMENT_ZERO * top:
+                spread = max(spread, max(
+                    float((r[k] - ref[k]).norm() / ref[k].norm())
+                    for r in runs))
+            else:
+                noise = max([noise] + [float(t[k].abs().max()) / top
+                                       for t in [ref, *runs]])
+    return spread, noise
+
+
+def dp_worker(rank: int, port: int, out_path: str) -> int:
+    """One of phase 13's two processes: gloo on the one card (NCCL refuses
+    two ranks on one GPU), 8 rows of each 16-row batch, float32."""
+    sys.path.insert(0, ROOT)
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.ops import gru
+    from vae_gan_mark_tpu_torch.parallel import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = distributed.initialize(f"localhost:{port}", 2, rank,
+                                    backend="gloo", device="cuda")
+    cfg = get_config("v2", compute_dtype="float32", lr_g=0.0, lr_d=0.0)
+    batches = [train_batch(cfg, BATCH, 300 + i, device)
+               for i in range(DP_STEPS)]
+    run = dp_run(gru, cfg, train_weights(cfg), batches)
+    torch.save(dict(metrics=run["metrics"], ms=run["ms"],
+                    launches=run["launches"], buffers=run["buffers"],
+                    moments=run["moments"], device=str(device)), out_path)
+    distributed.shutdown()
+    return 0
+
+
+def phase_data_parallel(gru, card: str) -> dict:
+    """Phase 13: (a) one process in an NCCL group of one against the same
+    steps without a group, bf16, bit for bit; (b) two processes on the
+    card (gloo) at 8 rows against one process at 16, float32."""
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.parallel import distributed, mesh
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = get_config("v2", compute_dtype="bfloat16")
+        weights = train_weights(cfg)
+        batches = [train_batch(cfg, BATCH, 200 + i, "cuda")
+                   for i in range(DP_GROUP_STEPS)]
+        alone = dp_run(gru, cfg, weights, batches)
+        distributed.initialize(f"localhost:{free_port()}", 1, 0,
+                               device="cuda")
+        try:
+            check(mesh.active() and torch.distributed.get_backend() == "nccl",
+                  "phase 13: no NCCL group of one")
+            grouped = dp_run(gru, cfg, weights, batches)
+        finally:
+            distributed.shutdown()
+        a, b = (state_tensors(r["state"]) for r in (alone, grouped))
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        check(not differ and alone["metrics"] == grouped["metrics"],
+              f"phase 13a: a group of one differs from no group: "
+              f"{differ[:5]}, metrics {alone['metrics'][-1]} against "
+              f"{grouped['metrics'][-1]}")
+        steps = DP_GROUP_STEPS
+        check(grouped["launches"] == (2 * steps, 2 * steps),
+              f"phase 13a: GRU launches {grouped['launches']}, expected "
+              f"2 + 2 a step over {steps} steps")
+        print(f"[dp] NCCL group of one equals no group over {steps} bf16 "
+              f"steps at bs={BATCH}, bit for bit ({len(a)} tensors, "
+              f"metrics); GRU launches {grouped['launches']}; ms a step "
+              f"{[round(t, 2) for t in grouped['ms']]} (no group "
+              f"{[round(t, 2) for t in alone['ms']]})", flush=True)
+        del alone, grouped, a, b
+
+        cfg32 = get_config("v2", compute_dtype="float32", lr_g=0.0,
+                           lr_d=0.0)
+        port = free_port()
+        outs = [os.path.join(RUNS_DIR, f"dp_rank{r}.pt") for r in range(2)]
+        os.makedirs(RUNS_DIR, exist_ok=True)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker",
+             str(r), str(port), outs[r]], cwd=ROOT,
+            env=child_env(LOCAL_RANK="0"), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=400)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        workers_s = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            check(proc.returncode == 0, f"phase 13b: process {r} exited "
+                  f"{proc.returncode}: {log[-3000:]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        for o in outs:
+            os.remove(o)
+        batches = [train_batch(cfg32, BATCH, 300 + i, "cuda")
+                   for i in range(DP_STEPS)]
+        one = dp_run(gru, cfg32, train_weights(cfg32), batches)
+        metric_rel = max(abs(r["metrics"][i][k] - one["metrics"][i][k])
+                         / max(abs(one["metrics"][i][k]), 1e-12)
+                         for r in ranks for i in range(DP_STEPS)
+                         for k in one["metrics"][i])
+        buffer_err = max(float((r["buffers"][k] - v).abs().max())
+                         for r in ranks for k, v in one["buffers"].items())
+        rank_equal = all(torch.equal(ranks[0]["buffers"][k],
+                                     ranks[1]["buffers"][k])
+                         for k in one["buffers"])
+        moment_l2, moment_noise = dp_moment_spread(
+            one["moments"], [r["moments"] for r in ranks])
+        print(f"[dp] 2 processes x {BATCH // 2} rows (gloo, one card) vs 1 "
+              f"process x {BATCH}, {DP_STEPS} f32 steps: metrics max rel "
+              f"{metric_rel:.3e} (limit {DP_METRIC_RTOL}), BN statistics "
+              f"and u max abs {buffer_err:.3e} (limit {DP_BUFFER_ATOL}), "
+              f"Adam moments per tensor L2 {moment_l2:.3e} (limit "
+              f"{STEP_MOMENT_L2}; zero-gradient noise {moment_noise:.3e} of "
+              f"the largest, limit {STEP_MOMENT_ZERO}), processes equal "
+              f"{rank_equal}; GRU launches "
+              f"{[r['launches'] for r in ranks]}; ms a step "
+              f"{[[round(t, 2) for t in r['ms']] for r in ranks]} (one "
+              f"process {[round(t, 2) for t in one['ms']]}); workers "
+              f"{workers_s:.1f} s", flush=True)
+        check(rank_equal, "phase 13b: the two processes' buffers differ")
+        check(metric_rel <= DP_METRIC_RTOL and buffer_err <= DP_BUFFER_ATOL
+              and moment_l2 <= STEP_MOMENT_L2
+              and moment_noise <= STEP_MOMENT_ZERO,
+              f"phase 13b: 2 processes vs 1: metrics {metric_rel}, "
+              f"buffers {buffer_err}, moments {moment_l2}")
+        for r in ranks:
+            check(tuple(r["launches"]) == (2 * DP_STEPS, 2 * DP_STEPS),
+                  f"phase 13b: GRU launches {r['launches']}, expected 2 + 2 "
+                  f"a step over {DP_STEPS} steps")
+        return dict(group_of_one=dict(steps=DP_GROUP_STEPS,
+                                      launches=[2 * DP_GROUP_STEPS] * 2),
+                    two_processes=dict(metric_max_rel=metric_rel,
+                                       buffer_max_abs=buffer_err,
+                                       moment_max_l2=moment_l2,
+                                       moment_noise=moment_noise,
+                                       launches=[r["launches"]
+                                                 for r in ranks],
+                                       ms=[r["ms"] for r in ranks],
+                                       one_process_ms=one["ms"],
+                                       workers_s=workers_s),
+                    card=card)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def serve_artifact(art_dir: str, request_path: str, out_path: str) -> int:
+    """Phase 14's child: serve an artifact without the model code, the GRU
+    counts at 0 before and read after, and time it."""
+    sys.path.insert(0, ROOT)
+    from vae_gan_mark_tpu_torch.ops import gru
+    from vae_gan_mark_tpu_torch.serve.export import ExportedGenerator
+
+    def model_code():
+        return sorted(m for m in sys.modules
+                      if m.startswith(("vae_gan_mark_tpu_torch.models",
+                                       "vae_gan_mark_tpu_torch.train")))
+
+    gen = ExportedGenerator.load(art_dir)
+    req = np.load(request_path)
+    texts = [str(t) for t in req["texts"]]
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    out = gen.generate(req["ru"], req["mask"], texts, seed=0)
+    torch.cuda.synchronize()
+    launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+    ru, mask, small = req["ru"][:BATCH], req["mask"][:BATCH], texts[:BATCH]
+    gen.generate(ru, mask, small)
+    iters = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        gen.generate(ru, mask, small)       # returns host arrays: synced
+    img_per_s = iters * BATCH / (time.perf_counter() - t0)
+    np.save(out_path, out)
+    print(json.dumps(dict(launches=launches, img_per_s=img_per_s,
+                          model_code=model_code())))
+    return 0
+
+
+def phase_export(gru, card: str) -> dict:
+    """Phase 14: the v2 generator at 448x64 exported in f32 and bf16 at
+    bs 16, each served from a fresh process against the engine."""
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+    from vae_gan_mark_tpu_torch.serve import InferenceEngine
+    from vae_gan_mark_tpu_torch.serve.export import export_generator
+    from vae_gan_mark_tpu_torch.utils.port_jax import (
+        random_jax_tree, state_dict_from_jax)
+    import shutil
+
+    os.makedirs(RUNS_DIR, exist_ok=True)
+    result = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config("v2", compute_dtype=dtype)
+        generator = VAEGANGenerator(cfg)
+        generator.load_state_dict(state_dict_from_jax(
+            *random_jax_tree(cfg, seed=0), cfg))
+        art = os.path.join(RUNS_DIR, f"artifact_{dtype}")
+        t0 = time.perf_counter()
+        export_generator(cfg, generator, art, batch_size=BATCH)
+        export_s = time.perf_counter() - t0
+        ru, mask, texts = make_requests(cfg, EXPORT_REQUESTS, seed=40)
+        request = os.path.join(RUNS_DIR, f"request_{dtype}.npz")
+        np.savez(request, ru=ru, mask=mask, texts=np.array(texts))
+        out_path = os.path.join(RUNS_DIR, f"served_{dtype}.npy")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--serve-artifact",
+             art, request, out_path], cwd=ROOT, env=child_env(),
+            capture_output=True, text=True, timeout=400)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"phase 14 {dtype}: the artifact's "
+              f"process exited {proc.returncode}: {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(not child["model_code"], f"phase 14 {dtype}: the artifact's "
+              f"process loaded {child['model_code']}")
+        chunks = -(-EXPORT_REQUESTS // BATCH)
+        check(child["launches"] == [2 * chunks, 0],
+              f"phase 14 {dtype}: GRU launches {child['launches']} in the "
+              f"artifact's process, expected 2 x {chunks} chunks")
+        served = np.load(out_path)
+        check_patches(served, EXPORT_REQUESTS, cfg, f"artifact {dtype}")
+        engine = InferenceEngine(cfg, generator, batch_size=BATCH, seed=0,
+                                 device="cuda")
+        want = engine.generate(ru, mask, texts)
+        err = float(np.abs(served - want).max())
+        check(err <= EXPORT_ATOL[dtype], f"phase 14 {dtype}: artifact vs "
+              f"engine max abs {err} > {EXPORT_ATOL[dtype]}")
+        small = (ru[:BATCH], mask[:BATCH], texts[:BATCH])
+        engine.generate(*small)
+        iters = 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            engine.generate(*small)
+        engine_rate = iters * BATCH / (time.perf_counter() - t0)
+        print(f"[export] {dtype}: exported in {export_s:.1f} s; served "
+              f"{EXPORT_REQUESTS} requests from a fresh process ({child_s:.1f}"
+              f" s, no models/ or train/ module loaded), GRU launches "
+              f"{child['launches']} ({chunks} chunks); vs engine max abs "
+              f"{err:.3e} (limit {EXPORT_ATOL[dtype]}); bs={BATCH} "
+              f"artifact {child['img_per_s']:.1f} img/s, engine "
+              f"{engine_rate:.1f} img/s on {card}", flush=True)
+        result[dtype] = dict(export_s=export_s, child_s=child_s,
+                             launches=child["launches"], chunks=chunks,
+                             max_abs_err=err,
+                             artifact_img_per_s=child["img_per_s"],
+                             engine_img_per_s=engine_rate)
+        del generator, engine
+        shutil.rmtree(art, ignore_errors=True)
+    shutil.rmtree(RUNS_DIR, ignore_errors=True)
+    return result
+
+
+def phase_doctor() -> dict:
+    """``python -m vae_gan_mark_tpu_torch.doctor`` on the card: every
+    check ok."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "vae_gan_mark_tpu_torch.doctor"], cwd=ROOT,
+                          env=child_env(), capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[")]
+    for line in lines:
+        print(f"[doctor] {line}", flush=True)
+    check(proc.returncode == 0 and lines and
+          all(ln.startswith("[ok]") for ln in lines),
+          f"doctor exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-2000:]}")
+    return dict(seconds=seconds, lines=lines)
+
+
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
     ("gru forward kernel", ("gru_fwd_kernel",)),
     ("gru backward kernel", ("gru_bwd_kernel",)),
@@ -2193,11 +2570,22 @@ def main() -> int:
     print(f"[done] phase 11 (vanilla, lr_sh) took {t_cond - t_vanilla:.1f} s",
           flush=True)
     cond = phase_cond_disc(gru, card)
-    t_end = time.perf_counter()
-    print(f"[done] phase 12 (conditional D) took {t_end - t_cond:.1f} s",
+    t_dp = time.perf_counter()
+    print(f"[done] phase 12 (conditional D) took {t_dp - t_cond:.1f} s",
           flush=True)
+    dp = phase_data_parallel(gru, card)
+    t_export = time.perf_counter()
+    export = phase_export(gru, card)
+    t_doctor = time.perf_counter()
+    doctor = phase_doctor()
+    t_end = time.perf_counter()
+    print(f"[done] phase 13 (data parallel) took {t_export - t_dp:.1f} s, "
+          f"phase 14 (export) {t_doctor - t_export:.1f} s, doctor "
+          f"{t_end - t_doctor:.1f} s", flush=True)
     new_phases_s = dict(multi_step=t_oldv - t_new, oldv=t_vanilla - t_oldv,
-                        vanilla=t_cond - t_vanilla, cond_disc=t_end - t_cond)
+                        vanilla=t_cond - t_vanilla, cond_disc=t_dp - t_cond,
+                        data_parallel=t_export - t_dp,
+                        export=t_doctor - t_export, doctor=t_end - t_doctor)
     print(f"[done] phase 9 took {new_phases_s['multi_step']:.1f} s, phase "
           f"10 {new_phases_s['oldv']:.1f} s", flush=True)
 
@@ -2226,7 +2614,9 @@ def main() -> int:
                  oldv_train=oldv["train"]["launches"][0],
                  vanilla_serve=vanilla["launches"]["serve_bfloat16"][0],
                  vanilla_train=vanilla["launches"]["train"][0],
-                 cond_v2_train=cond["v2_train"]["launches"][0]),
+                 cond_v2_train=cond["v2_train"]["launches"][0],
+                 dp_train=dp["two_processes"]["launches"][0][0],
+                 export_serve=export["float32"]["launches"][0]),
              max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
              directions_per_launch=fwd_row["directions_per_launch"],
              ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
@@ -2249,7 +2639,9 @@ def main() -> int:
                  oldv_train=oldv["train"]["launches"][1],
                  vanilla_serve=vanilla["launches"]["serve_bfloat16"][1],
                  vanilla_train=vanilla["launches"]["train"][1],
-                 cond_v2_train=cond["v2_train"]["launches"][1]),
+                 cond_v2_train=cond["v2_train"]["launches"][1],
+                 dp_train=dp["two_processes"]["launches"][0][1],
+                 export_serve=export["float32"]["launches"][1]),
              max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
              directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
@@ -2277,6 +2669,7 @@ def main() -> int:
                        train=train, epoch_driver=driver,
                        multi_step=multi, multi_step_driver=multi_driver,
                        oldv=oldv, vanilla=vanilla, cond_disc=cond,
+                       data_parallel=dp, export=export, doctor=doctor,
                        new_phases_s=new_phases_s,
                        kernels=kernels),
                   f, indent=1,
@@ -2292,4 +2685,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--serve-artifact"]:
+        sys.exit(serve_artifact(*sys.argv[2:5]))
     sys.exit(main())

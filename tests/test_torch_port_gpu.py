@@ -528,3 +528,76 @@ def test_conditional_disc_step_on_card_matches_cpu(card, variant):
         torch.testing.assert_close(
             head_gpu[key], head_cpu[key], rtol=0,
             atol=1e-3 * float(head_cpu[key].abs().max()))
+
+
+def _gru_op_inputs(card, hidden=16, batch=4, length=12, grad=True):
+    gen = torch.Generator(device=card).manual_seed(hidden + batch)
+    x = torch.randn(length, batch, 3 * hidden, device=card, generator=gen)
+    w = (torch.rand(3 * hidden, hidden, device=card, generator=gen)
+         - 0.5) / hidden ** 0.5
+    b = torch.rand(3 * hidden, device=card, generator=gen) - 0.5
+    return [t.requires_grad_(grad) for t in (x, w, b)]
+
+
+@pytest.mark.parametrize("hidden", [16, 256])
+def test_gru_custom_ops_on_card(card, hidden):
+    """The four GRU ops on CUDA tensors: ``torch.library.opcheck`` (schema,
+    fake implementation, autograd registration) and each against its plain
+    version (forward atol 1e-5 rtol 1e-4, gradients atol 1e-4 rtol 1e-4, as
+    the kernels' own card tests), with one kernel launch a call."""
+    fwd, bwd = (_gru_op_inputs(card, hidden, batch=b) for b in (4, 4))
+    bwd = [bwd[0].detach().roll(1, 0).requires_grad_(True)] + bwd[1:]
+    torch.library.opcheck(gru.gru_forward_op, (*fwd, True))
+    torch.library.opcheck(gru.bigru_forward_op, (*fwd, *bwd))
+    before = gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches
+    outs = gru.bigru_forward_op(*fwd, *bwd)
+    grads = [torch.randn_like(o) for o in outs]
+    torch.autograd.backward(outs, grads)
+    torch.cuda.synchronize()
+    assert (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain = [gru.gru_recurrence_plain(*[t.detach() for t in d], rev)
+             for d, rev in ((fwd, False), (bwd, True))]
+    for got, ref in zip(outs, plain):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
+    for d, g, o, rev in zip((fwd, bwd), grads, outs, (False, True)):
+        ref = gru.gru_backward_plain(*[t.detach() for t in d], o.detach(), g,
+                                     rev)
+        for t, r in zip(d, ref):
+            torch.testing.assert_close(t.grad, r, atol=1e-4, rtol=1e-4)
+    detached = [t.detach() for t in fwd]
+    saved = gru.gru_forward_op(*detached, False)
+    back = gru.bigru_backward_op(*detached, saved, torch.ones_like(saved),
+                                 *detached, saved, torch.ones_like(saved))
+    torch.library.opcheck(gru.bigru_backward_op,
+                          (*detached, saved, torch.ones_like(saved),
+                           *detached, saved, torch.ones_like(saved)))
+    assert len(back) == 6
+
+
+def test_export_round_trip_on_card(card, tmp_path):
+    """The tiny v2 generator exported on the card and served from its
+    artifact against ``InferenceEngine`` on the card (atol 1e-5: one
+    program, the same kernels; cuDNN may pick other algorithms), with the
+    GRU kernel launched twice a chunk inside the program."""
+    from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+    from vae_gan_mark_tpu_torch.serve.export import (
+        ExportedGenerator, export_generator)
+
+    cfg = get_config("v2", **TINY)
+    params, stats = random_jax_tree(cfg, 0)
+    generator = VAEGANGenerator(cfg)
+    generator.load_state_dict(state_dict_from_jax(params, stats, cfg))
+    export_generator(cfg, generator, str(tmp_path / "art"), batch_size=4)
+    art = ExportedGenerator.load(str(tmp_path / "art"))
+    assert art.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    ru = rng.uniform(0, 1, (6, 32, 64, 3)).astype(np.float32)
+    mask = rng.uniform(0, 1, (6, 32, 64, 1)).astype(np.float32)
+    texts = [f"T{i}" for i in range(6)]
+    before = gru.KERNEL.launches
+    got = art.generate(ru, mask, texts, seed=2)
+    assert gru.KERNEL.launches == before + 4        # 2 chunks
+    want = InferenceEngine(cfg, generator, batch_size=4, seed=2,
+                           device=card).generate(ru, mask, texts)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -352,12 +352,27 @@ def test_cuda_backward_reaches_the_kernel(monkeypatch):
 
 
 class _Ctx:
-    """Stands in for autograd's context object when an autograd function's
-    forward and backward are called directly (autograd itself cannot run
-    on fake CUDA tensors in a CPU-only build)."""
+    """Stands in for autograd's context object when an op's autograd
+    formula (``setup_context``, ``backward``) is called directly (autograd
+    itself cannot run on fake CUDA tensors in a CPU-only build)."""
 
     def save_for_backward(self, *tensors):
         self.saved_tensors = tensors
+
+
+def test_the_ops_have_cpu_cuda_and_fake_implementations():
+    """Each GRU op dispatches CPU and CUDA tensors to its implementation
+    and fake tensors to its fake one, so a fake CUDA tensor never reaches
+    the implementation through the op: the two tests below call it as the
+    dispatcher does on the card."""
+    for name in ("gru_forward", "gru_backward", "bigru_forward",
+                 "bigru_backward"):
+        qualified = f"{gru.NAMESPACE}::{name}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                qualified, key), (qualified, key)
+    assert gru.bigru_forward_op._init_fn is gru._bigru_forward
+    assert gru.bigru_backward_op._init_fn is gru._bigru_backward
 
 
 def test_bigru_backward_reaches_the_kernel_once_per_layer(monkeypatch):
@@ -387,11 +402,14 @@ def test_bigru_backward_reaches_the_kernel_once_per_layer(monkeypatch):
     def traced_layer(*args):
         ctx = _Ctx()
         contexts.append(ctx)
-        return gru.BiGRURecurrence.forward(ctx, *args)
+        outs = gru._bigru_forward(*args)
+        gru.BiGRURecurrence.setup_context(ctx, args, outs)
+        return outs
 
     monkeypatch.setattr(gru, "gru_backward_plain", plain)
     monkeypatch.setattr(gru, "KERNEL", forward_kernel)
     monkeypatch.setattr(gru, "BACKWARD_KERNEL", recording_kernel)
+    monkeypatch.setattr(gru, "bigru_backward_op", gru._bigru_backward)
     monkeypatch.setattr(rnn, "bigru_recurrence_grad", traced_layer)
     hidden, length, batch = 16, 6, 2
     port = BiGRU(8, hidden, num_layers=2, dropout=0.0)
@@ -430,9 +448,7 @@ def test_bigru_forward_reaches_the_kernel_once_per_layer(monkeypatch):
 
     monkeypatch.setattr(gru, "gru_recurrence_plain", plain)
     monkeypatch.setattr(gru, "KERNEL", recording_kernel)
-    monkeypatch.setattr(rnn, "bigru_recurrence_grad",
-                        lambda *args: gru.BiGRURecurrence.forward(_Ctx(),
-                                                                  *args))
+    monkeypatch.setattr(rnn, "bigru_recurrence_grad", gru._bigru_forward)
     hidden, length, batch = 16, 6, 2
     port = BiGRU(8, hidden, num_layers=2, dropout=0.0)
     with FakeTensorMode(), torch.no_grad():

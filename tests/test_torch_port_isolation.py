@@ -47,10 +47,37 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     for module in ("serve.engine", "ops.gru", "train.step",
-                   "models.discriminator", "ops.conv_probe"):
+                   "models.discriminator", "ops.conv_probe", "serve.export",
+                   "serve.chunks", "parallel.mesh", "parallel.distributed",
+                   "doctor", "data.acquire", "utils.profiling",
+                   "utils.debug", "utils.reference_checkpoint"):
         assert f"vae_gan_mark_tpu_torch.{module}" in result["imported"]
     bad = [m for m in result["loaded"] if forbidden(m)]
     assert not bad, bad
+
+
+def test_the_artifact_loader_imports_no_model_code():
+    """``serve/export.py`` and what loading an artifact imports (the GRU
+    ops, the tokenizer and the text embedder) load nothing of ``models/``
+    or ``train/``, and no JAX, in a fresh interpreter."""
+    script = """
+import json, sys
+import vae_gan_mark_tpu_torch.serve.export
+import vae_gan_mark_tpu_torch.ops.gru
+import vae_gan_mark_tpu_torch.data.tokenizer
+import vae_gan_mark_tpu_torch.data.text_embed
+print(json.dumps(sorted(sys.modules)))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    port = [m.split(".") for m in loaded
+            if m.startswith("vae_gan_mark_tpu_torch.")]
+    assert not [m for m in port if m[1] in ("models", "train")], port
+    assert not [m for m in loaded if forbidden(m)]
 
 
 def imported_modules(path: Path):

@@ -1,5 +1,6 @@
-"""vae_gan_mark_tpu_torch -- the generator's serving path and the v2 GAN
-train step in PyTorch for an NVIDIA H100, beside the JAX package it ports.
+"""vae_gan_mark_tpu_torch -- the JAX package ``vae_gan_mark_tpu`` in
+PyTorch for an NVIDIA H100: serving, training, data parallelism and the
+serving artifact, beside the JAX package it ports.
 
 * ``config``, ``data/tokenizer``: copies of the JAX package's host modules.
 * ``ops``: BatchNorm (train and eval), InstanceNorm, spectral norm, conv
@@ -10,13 +11,18 @@ train step in PyTorch for an NVIDIA H100, beside the JAX package it ports.
   recurrence and its gradient as CUDA kernels for ``sm_90a``;
   ``ops/conv_probe.py`` + ``csrc/conv3x3.cu``: the conv probe's 3x3 conv.
   Each is built with ``nvcc`` at first use (``ops/cuda_build.py``) and has
-  its plain PyTorch version for CPU tensors.
-* ``models``: the v2 (and unet) generator, the patch discriminator and the
+  its plain PyTorch version for CPU tensors; the GRU's are also
+  ``torch.library`` custom ops.
+* ``models``: every variant's generator, the patch discriminator and the
   VGG16 head, with the reference's state-dict keys.
 * ``losses``, ``eval``: the training losses and the eval step's metrics.
-* ``train``: the train state and the train and eval steps.
-* ``serve/engine.py``: ``InferenceEngine`` (NHWC numpy in and out).
-* ``utils/port_jax.py``: JAX parameter trees -> ``state_dict``.
+* ``train``: the train state, the train and eval steps, the epoch loop
+  (``Trainer``) and its checkpoints.
+* ``parallel``: one process per card in a ``torch.distributed`` group.
+* ``serve/engine.py``: ``InferenceEngine`` (NHWC numpy in and out);
+  ``serve/export.py``: the ``torch.export`` serving artifact.
+* ``doctor``, ``utils``: pre-flight checks, profiling, the JAX and
+  reference-checkpoint weight loaders.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``;
 without a card they raise. Nothing here imports JAX or the JAX package.

@@ -14,14 +14,22 @@ embedded on the host: the cached SBERT model, else ``hash_embed`` with a
 warning), unet, v2 and oldv; ``--set conditional_disc=1`` adds the
 projection-conditional discriminator head. ``--multi-step K`` runs K train
 steps (and K val batches) per call, on the card as CUDA-graph replays of
-one step. The JAX flags that wait for later work are not here: ``--loader
-device``, ``--no-mesh`` and the multi-process flags.
+one step. The JAX flag ``--loader device`` is not here.
+
+Several processes (one per card, or on the CPU with ``--device cpu``)
+train as one run on the global batch ``--batch-size``: start the same
+command once per process with ``--coordinator HOST:PORT --num-processes N
+--process-id I``, or under ``torchrun``, whose environment stands in for
+the flags. Each process loads its rows of every batch; process 0 writes
+the record and the checkpoints. ``--no-mesh`` runs one process without a
+process group (no collectives).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 from vae_gan_mark_tpu_torch.config import VARIANTS, get_config
 
@@ -82,6 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train steps (and val batches) per call; on the card "
                         "K > 1 replays a CUDA graph of one step K times "
                         "(the JAX package's scanned multi-step dispatch)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="one process without a process group: no "
+                        "collectives (refused with several processes)")
+    # Multi-process: --coordinator (and --num-processes, --process-id) on
+    # every process, or torchrun's MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK.
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 for torch.distributed")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     add_device_flag(p)
     return p
 
@@ -121,8 +138,11 @@ def parse_overrides(cfg_cls, pairs):
 def synthetic_sources(cfg, args, device):
     """Train and val data sources over the synthetic dataset: train batch i
     of epoch e is ``batch(bs, i + e * steps)``, val batch i ``batch(bs,
-    i)``, on the device (gathered there) or from the host."""
+    i)``, on the device (gathered there) or from the host; with several
+    processes each process takes its rows of every batch, from the
+    host."""
     from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
+    from vae_gan_mark_tpu_torch.parallel import mesh
     options = dict(text_vocab=args.synthetic_text_vocab,
                    text_tile=args.synthetic_text_tile,
                    structured=args.synthetic_structured)
@@ -135,8 +155,13 @@ def synthetic_sources(cfg, args, device):
     steps = args.synthetic_samples // bs
     val_steps = max(steps // 8, 1)
     est_bytes = train_ds.ru.nbytes + train_ds.en.nbytes + train_ds.mask.nbytes
-    if args.device_data == "on" or (args.device_data == "auto"
-                                    and est_bytes < 4 << 30):
+    several = mesh.process_count() > 1
+    if args.device_data == "on" and several:
+        raise SystemExit("--device-data on holds the whole set in one "
+                         "process; a multi-process run loads each "
+                         "process's rows from the host")
+    if args.device_data == "on" or (args.device_data == "auto" and not
+                                    several and est_bytes < 4 << 30):
         from vae_gan_mark_tpu_torch.data.device_synthetic import (
             DeviceResidentSynthetic)
         train_data = DeviceResidentSynthetic(train_ds, bs, steps,
@@ -151,11 +176,11 @@ def synthetic_sources(cfg, args, device):
 
     def train_data(epoch):
         for i in range(steps):
-            yield train_ds.batch(bs, i + epoch * steps)
+            yield mesh.shard_batch(train_ds.batch(bs, i + epoch * steps))
 
     def val_data(epoch):
         for i in range(val_steps):
-            yield val_ds.batch(bs, i)
+            yield mesh.shard_batch(val_ds.batch(bs, i))
 
     return train_data, val_data
 
@@ -163,9 +188,14 @@ def synthetic_sources(cfg, args, device):
 def disk_sources(cfg, args):
     """Train and val loaders over the on-disk dataset, split as the
     reference does (grouped by RU image, ``cfg.val_split``,
-    ``cfg.split_seed``)."""
+    ``cfg.split_seed``). With several processes each loads a contiguous
+    shard of equal length of each split, in batches of its rows, and the
+    trailing partial val batch is dropped, so that every process runs the
+    same number of batches of the same shape (a process with one more
+    would wait for the others' collectives forever)."""
     from vae_gan_mark_tpu_torch.data.index import build_index, grouped_split
     from vae_gan_mark_tpu_torch.data.pipeline import HostWarpLoader
+    from vae_gan_mark_tpu_torch.parallel import mesh
     if not all((args.json_dir, args.ru_dir, args.en_dir, args.mask_dir)):
         raise SystemExit("--json-dir/--ru-dir/--en-dir/--mask-dir are "
                          "required without --synthetic")
@@ -175,17 +205,27 @@ def disk_sources(cfg, args):
     train_idx, val_idx = grouped_split(samples, cfg.val_split,
                                        cfg.split_seed)
     print(f"train/val: {len(train_idx)}/{len(val_idx)}")
+    n_proc, proc_id = mesh.process_count(), mesh.process_index()
+    if n_proc > 1:
+        # The split is the same on every process (same seed, same
+        # listing); a decode failure gives a zero sample, not a dropped
+        # batch (data/pipeline.py), so the shards stay aligned.
+        def shard(idx):
+            per = len(idx) // n_proc
+            return idx[proc_id * per:(proc_id + 1) * per]
+        train_idx, val_idx = shard(train_idx), shard(val_idx)
     text_embed_fn = None
     if cfg.text_encoder == "sbert":
         from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
         text_embed_fn = make_text_embedder()
-    common = dict(batch_size=cfg.batch_size, seed=args.seed,
+    common = dict(batch_size=cfg.batch_size // n_proc, seed=args.seed,
                   num_workers=args.num_workers, cache_dir=args.patch_cache,
                   text_embed_fn=text_embed_fn)
     train_data = HostWarpLoader(cfg, samples, train_idx, shuffle=True,
                                 drop_last=True, **common)
     val_data = HostWarpLoader(cfg, samples, val_idx, shuffle=False,
-                              drop_last=False, **common) if val_idx else None
+                              drop_last=n_proc > 1, **common) \
+        if val_idx else None
     return train_data, val_data
 
 
@@ -193,7 +233,9 @@ def main(argv=None):
     import torch
 
     from vae_gan_mark_tpu_torch.config import VariantConfig
+    from vae_gan_mark_tpu_torch.parallel import distributed
     from vae_gan_mark_tpu_torch.train.loop import Trainer
+    from vae_gan_mark_tpu_torch.utils.debug import enable_nan_debugging
 
     args = build_parser().parse_args(argv)
     overrides = parse_overrides(VariantConfig, args.set)
@@ -202,24 +244,41 @@ def main(argv=None):
     if args.batch_size is not None:
         overrides["batch_size"] = args.batch_size
     cfg = get_config(args.variant, **overrides)
+    several = (args.num_processes
+               or int(os.environ.get("WORLD_SIZE") or 1)) > 1
+    if args.no_mesh and several:
+        raise SystemExit("--no-mesh runs one process; it cannot run with "
+                         "--num-processes > 1")
+    if args.multi_step > 1 and several:
+        raise SystemExit("--multi-step > 1 runs one process (as the JAX "
+                         "package's multi step); use --multi-step 1 with "
+                         "several processes")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to train on the CPU")
+    device = torch.device(args.device)
+    if not args.no_mesh:
+        device = distributed.initialize(args.coordinator, args.num_processes,
+                                        args.process_id, device=device)
+    if cfg.batch_size % distributed.process_count():
+        raise SystemExit(f"--batch-size {cfg.batch_size} does not split "
+                         f"over {distributed.process_count()} processes")
     if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+        enable_nan_debugging()
 
     if args.synthetic:
-        train_data, val_data = synthetic_sources(cfg, args, args.device)
+        train_data, val_data = synthetic_sources(cfg, args, device)
     else:
         train_data, val_data = disk_sources(cfg, args)
 
     trainer = Trainer(cfg, train_data, val_data, workdir=args.workdir,
-                      seed=args.seed, device=args.device,
+                      seed=args.seed, device=device,
                       profile_dir=args.profile_dir,
                       multi_step=args.multi_step)
     best = trainer.fit()
     print(f"done; best val recon: {best:.4f}")
     trainer.logger.finish()
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ a host-to-device copy or a few kernels; a copy from pageable host memory is
 also refused while a CUDA graph is being captured. ``device_constant``
 builds each one once per (key, device) and keeps it. It builds none during
 a capture: a step runs eagerly once on its device before it is captured
-(``train/graphs.py``), and that run builds them.
+(``train/graphs.py``), and that run builds them. Under a trace
+(``torch.export``, ``serve/export.py``) a missing constant is built for
+that trace alone: the trace's tensors are fake, and one kept here would
+stand in for the real constant in later eager calls.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ def device_constant(key: Hashable, device: torch.device,
     device = torch.device(device)
     value = _CONSTANTS.get((key, device))
     if value is None:
+        if torch.compiler.is_compiling():
+            return make().to(device)
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 f"the constant {key!r} is first needed on {device} during a "

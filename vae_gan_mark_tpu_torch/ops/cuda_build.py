@@ -15,6 +15,13 @@ code to its message.
   functions' signatures, launches them, raises when a launch fails and
   counts the launches that succeeded; ``query`` calls a function that
   launches nothing and returns an int through its last argument.
+* One device per process: a source keeps host state in statics that it
+  sets once per process (``csrc/gru_fwd.cu:set_smem_once``: the
+  shared-memory attribute, which CUDA holds per device; the occupancy
+  reading that picks the GRU forward's tile rows). So each kernel object
+  serves the first device it is used on (``claim``) and raises for
+  another; a data-parallel run has one process per card
+  (``parallel/distributed.py``).
 * ``launch_counts()`` / ``add_launches()`` read and move every kernel's
   count at once: a CUDA graph (``train/graphs.py``) records what its
   capture launched and adds that at each replay, since a replay runs no
@@ -126,7 +133,19 @@ class CudaKernel:
         self.functions = functions
         self.error_function = error_function
         self.launches = 0
+        self.device_index: Optional[int] = None
         self._lib: Optional[ctypes.CDLL] = None
+
+    def claim(self, device_index: int) -> None:
+        """Bind this kernel to CUDA device ``device_index`` at its first
+        use; raise for any other device later."""
+        if self.device_index is None:
+            self.device_index = device_index
+        elif device_index != self.device_index:
+            raise RuntimeError(
+                f"{self.source.name} serves cuda:{self.device_index} in this "
+                f"process and was given cuda:{device_index}: its host state "
+                "holds for one device, so use one process per card")
 
     def build(self) -> Tuple[Path, str]:
         return build_all([self.source])[self.source]

@@ -67,6 +67,7 @@ class CudaGRU(CudaKernel):
                              f"{x_proj.device}")
         length, batch, h3 = x_proj.shape
         hidden = h3 // 3
+        self.claim(x_proj.device.index)
         self.load()
         outs, ptrs = [], []
         for x, w_hh, b_hh, _ in directions:
@@ -94,6 +95,7 @@ class CudaGRU(CudaKernel):
         batch rows per 8-CTA cluster (32 where 16-row tiles would need more
         clusters than the card holds at once), the clusters it needs, how
         many the card holds, and so the waves."""
+        self.claim(torch.cuda.current_device())
         rows = self.query("gru_forward_tile_rows", directions, batch, hidden)
         clusters = directions * -(-batch // rows)
         fit = self.max_active_clusters(hidden, rows)
@@ -131,6 +133,7 @@ class CudaGRUBackward(CudaKernel):
                              f"got {x_proj.device}")
         length, batch, h3 = x_proj.shape
         hidden = h3 // 3
+        self.claim(x_proj.device.index)
         self.load()
         outputs, ptrs = [], []
         for x, hp_outs, outs, grad, w_hh, b_hh, _ in directions:
@@ -152,6 +155,7 @@ class CudaGRUBackward(CudaKernel):
         """``cudaOccupancyMaxActiveClusters`` of the kernel at ``hidden``:
         how many 8-CTA clusters the card holds at once. A launch needs one
         per (direction, 16-row batch tile); beyond that it runs in waves."""
+        self.claim(torch.cuda.current_device())
         return self.query("gru_backward_max_clusters", hidden)
 
     def prepare(self, batch: int, hidden: int) -> None:
@@ -355,58 +359,158 @@ def gru_backward_plain(x_proj: torch.Tensor, w_hh: torch.Tensor,
     return dxp, dw, db
 
 
-class GRURecurrence(torch.autograd.Function):
-    """``gru_recurrence`` with its gradient: the forward kernel, then the
-    backward kernel on what the forward saved."""
+# ------------------------------------------------------------ custom ops
+# The four functions above as ``torch.library`` custom ops, so that a
+# traced program (``torch.export``, ``serve/export.py``) holds one GRU
+# node where a trace of the ctypes launches would hold nothing: each has
+# a fake implementation (shapes only) and one implementation for CPU and
+# CUDA tensors, the function above, which takes the plain loop for a CPU
+# tensor and the kernel for a CUDA tensor. Eager steps, CUDA-graph
+# captures and exported programs all go through them.
+NAMESPACE = "vgm_torch"
+_DEVICES = ("cpu", "cuda")
+
+
+def _gru_forward(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                 b_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
+    return gru_recurrence(x_proj, w_hh, b_hh, reverse)
+
+
+def _gru_backward(x_proj: torch.Tensor, w_hh: torch.Tensor,
+                  b_hh: torch.Tensor, outs: torch.Tensor, grad: torch.Tensor,
+                  reverse: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return gru_recurrence_backward(x_proj, w_hh, b_hh, outs, grad, reverse)
+
+
+def _bigru_forward(x_fwd: torch.Tensor, w_fwd: torch.Tensor,
+                   b_fwd: torch.Tensor, x_bwd: torch.Tensor,
+                   w_bwd: torch.Tensor, b_bwd: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return gru_bidirectional_forward((x_fwd, w_fwd, b_fwd),
+                                     (x_bwd, w_bwd, b_bwd))
+
+
+def _bigru_backward(x_fwd: torch.Tensor, w_fwd: torch.Tensor,
+                    b_fwd: torch.Tensor, outs_fwd: torch.Tensor,
+                    grad_fwd: torch.Tensor, x_bwd: torch.Tensor,
+                    w_bwd: torch.Tensor, b_bwd: torch.Tensor,
+                    outs_bwd: torch.Tensor, grad_bwd: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor, torch.Tensor]:
+    fwd, bwd = gru_bidirectional_backward(
+        (x_fwd, w_fwd, b_fwd, outs_fwd, grad_fwd),
+        (x_bwd, w_bwd, b_bwd, outs_bwd, grad_bwd))
+    return (*fwd, *bwd)
+
+
+def _custom_op(name: str, fn):
+    return torch.library.custom_op(f"{NAMESPACE}::{name}", fn,
+                                   mutates_args=(), device_types=_DEVICES)
+
+
+gru_forward_op = _custom_op("gru_forward", _gru_forward)
+gru_backward_op = _custom_op("gru_backward", _gru_backward)
+bigru_forward_op = _custom_op("bigru_forward", _bigru_forward)
+bigru_backward_op = _custom_op("bigru_backward", _bigru_backward)
+
+
+def _hidden_states(x_proj: torch.Tensor) -> torch.Tensor:
+    length, batch, h3 = x_proj.shape
+    return x_proj.new_empty((length, batch, h3 // 3))
+
+
+def _gradients(x_proj, w_hh, b_hh):
+    return (torch.empty_like(x_proj), torch.empty_like(w_hh),
+            torch.empty_like(b_hh))
+
+
+@gru_forward_op.register_fake
+def _(x_proj, w_hh, b_hh, reverse):
+    _check(x_proj, w_hh, b_hh)
+    return _hidden_states(x_proj)
+
+
+@gru_backward_op.register_fake
+def _(x_proj, w_hh, b_hh, outs, grad, reverse):
+    _check(x_proj, w_hh, b_hh, outs, grad)
+    return _gradients(x_proj, w_hh, b_hh)
+
+
+@bigru_forward_op.register_fake
+def _(x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd):
+    _check_pair((x_fwd, w_fwd, b_fwd), (x_bwd, w_bwd, b_bwd))
+    return _hidden_states(x_fwd), _hidden_states(x_bwd)
+
+
+@bigru_backward_op.register_fake
+def _(x_fwd, w_fwd, b_fwd, outs_fwd, grad_fwd, x_bwd, w_bwd, b_bwd,
+      outs_bwd, grad_bwd):
+    _check_pair((x_fwd, w_fwd, b_fwd, outs_fwd, grad_fwd),
+                (x_bwd, w_bwd, b_bwd, outs_bwd, grad_bwd))
+    return (*_gradients(x_fwd, w_fwd, b_fwd),
+            *_gradients(x_bwd, w_bwd, b_bwd))
+
+
+class GRURecurrence:
+    """The gradient of ``gru_forward_op`` (``register_autograd``): the
+    forward saves (x_proj, w_hh, b_hh, outs), the backward runs
+    ``gru_backward_op`` on them."""
 
     @staticmethod
-    def forward(ctx, x_proj, w_hh, b_hh, reverse):
-        outs = gru_recurrence(x_proj, w_hh, b_hh, reverse)
-        ctx.save_for_backward(x_proj, w_hh, b_hh, outs)
+    def setup_context(ctx, inputs, output):
+        x_proj, w_hh, b_hh, reverse = inputs
+        ctx.save_for_backward(x_proj, w_hh, b_hh, output)
         ctx.reverse = reverse
-        return outs
 
     @staticmethod
     def backward(ctx, grad):
         x_proj, w_hh, b_hh, outs = ctx.saved_tensors
-        dxp, dw, db = gru_recurrence_backward(
-            x_proj, w_hh, b_hh, outs, grad.contiguous(), ctx.reverse)
+        dxp, dw, db = gru_backward_op(x_proj, w_hh, b_hh, outs,
+                                      grad.contiguous(), ctx.reverse)
         return dxp, dw, db, None
 
 
-class BiGRURecurrence(torch.autograd.Function):
-    """Both directions of a bidirectional layer with their gradient: one
-    forward kernel launch for the pair (left to right, right to left), then
-    one backward launch for the pair."""
+class BiGRURecurrence:
+    """The gradient of ``bigru_forward_op`` (``register_autograd``): the
+    forward saves (x_proj, w_hh, b_hh, outs) per direction, the backward
+    runs ``bigru_backward_op``, one kernel launch for the pair."""
 
     @staticmethod
-    def forward(ctx, x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd):
-        outs_fwd, outs_bwd = gru_bidirectional_forward(
-            (x_fwd, w_fwd, b_fwd), (x_bwd, w_bwd, b_bwd))
-        ctx.save_for_backward(x_fwd, w_fwd, b_fwd, outs_fwd,
-                              x_bwd, w_bwd, b_bwd, outs_bwd)
-        return outs_fwd, outs_bwd
+    def setup_context(ctx, inputs, output):
+        x_f, w_f, b_f, x_b, w_b, b_b = inputs
+        ctx.save_for_backward(x_f, w_f, b_f, output[0],
+                              x_b, w_b, b_b, output[1])
 
     @staticmethod
     def backward(ctx, grad_fwd, grad_bwd):
         x_f, w_f, b_f, outs_f, x_b, w_b, b_b, outs_b = ctx.saved_tensors
-        (dx_f, dw_f, db_f), (dx_b, dw_b, db_b) = gru_bidirectional_backward(
-            (x_f, w_f, b_f, outs_f, grad_fwd.contiguous()),
-            (x_b, w_b, b_b, outs_b, grad_bwd.contiguous()))
-        return dx_f, dw_f, db_f, dx_b, dw_b, db_b
+        # Looked up at call time: the tests drive the backward on fake CUDA
+        # tensors with the op's implementation in its place.
+        return bigru_backward_op(x_f, w_f, b_f, outs_f,
+                                 grad_fwd.contiguous(), x_b, w_b, b_b,
+                                 outs_b, grad_bwd.contiguous())
+
+
+gru_forward_op.register_autograd(GRURecurrence.backward,
+                                 setup_context=GRURecurrence.setup_context)
+bigru_forward_op.register_autograd(
+    BiGRURecurrence.backward, setup_context=BiGRURecurrence.setup_context)
 
 
 def bigru_recurrence_grad(x_fwd: torch.Tensor, w_fwd: torch.Tensor,
                           b_fwd: torch.Tensor, x_bwd: torch.Tensor,
                           w_bwd: torch.Tensor, b_bwd: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``gru_bidirectional_forward`` (the second direction reversed), which
-    autograd differentiates with one backward launch for the pair."""
-    return BiGRURecurrence.apply(x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd)
+    """``gru_bidirectional_forward`` (the second direction reversed) as the
+    custom op, which autograd differentiates with one backward launch for
+    the pair."""
+    return bigru_forward_op(x_fwd, w_fwd, b_fwd, x_bwd, w_bwd, b_bwd)
 
 
 def gru_recurrence_grad(x_proj: torch.Tensor, w_hh: torch.Tensor,
                         b_hh: torch.Tensor,
                         reverse: bool = False) -> torch.Tensor:
-    """``gru_recurrence`` that autograd differentiates."""
-    return GRURecurrence.apply(x_proj, w_hh, b_hh, reverse)
+    """``gru_recurrence`` as the custom op, which autograd
+    differentiates."""
+    return gru_forward_op(x_proj, w_hh, b_hh, reverse)

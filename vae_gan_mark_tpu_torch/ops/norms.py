@@ -10,7 +10,12 @@ the JAX package implements them (``ops/norms.py``).
   ``running_stats_frozen()`` a train-mode forward normalises as usual and
   leaves the running statistics alone: the encoder's recompute under
   ``remat_encoder`` (``models/vaegan.py``) runs there, so the statistics
-  move once per step, as under flax's ``nn.remat``.
+  move once per step, as under flax's ``nn.remat``. In a process group
+  (``parallel/mesh.py``) the statistics are the global batch's, as under
+  the JAX package's data mesh: each process's mean and biased variance
+  are combined over the processes by a differentiable all-reduce, so the
+  gradient of the statistics crosses processes, and the running
+  variance's n / (n - 1) takes the global count.
 * ``InstanceNorm``: ``InstanceNorm2d(affine=True)``, per sample and channel
   over (H, W), biased variance, no running statistics.
 * ``spectral_normalize`` / ``SpectralConv``: ``torch.nn.utils.spectral_norm``
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.constants import device_constant
+from vae_gan_mark_tpu_torch.parallel import mesh
 
 # Per thread: a recompute runs in the thread that runs the backward.
 _FROZEN = threading.local()
@@ -93,7 +99,28 @@ class BatchNorm(nn.Module):
 
 def _batch_stats(xf: torch.Tensor, row_weights: Optional[Sequence[float]]
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Per-channel mean, biased variance and count over every dim but 1."""
+    """Per-channel mean, biased variance and count over every dim but 1,
+    over the global batch in a process group."""
+    stats = _local_stats(xf, row_weights)
+    return _global_stats(*stats) if mesh.active() else stats
+
+
+def _global_stats(mean: torch.Tensor, var: torch.Tensor, n: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Every process's (mean, biased variance) over its n rows combined
+    into the global batch's: with P processes of n rows each, the mean of
+    the means, and the mean of var_p + (mean_p - mean)^2. A group of one
+    returns its own statistics bit for bit (sums of one term, divisions by
+    one, a zero square), so one process computes the same with a group as
+    without one."""
+    world = mesh.process_count()
+    g_mean = mesh.all_reduce_sum(mean) / world
+    g_var = mesh.all_reduce_sum(var + (mean - g_mean).square()) / world
+    return g_mean, g_var, n * world
+
+
+def _local_stats(xf: torch.Tensor, row_weights: Optional[Sequence[float]]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     dims = (0,) + tuple(range(2, xf.dim()))
     if row_weights is None:
         var, mean = torch.var_mean(xf, dim=dims, unbiased=False)

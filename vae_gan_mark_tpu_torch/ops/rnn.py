@@ -23,6 +23,7 @@ from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.gru import (bigru_recurrence_grad,
                                             gru_recurrence_grad)
+from vae_gan_mark_tpu_torch.parallel.mesh import global_rows
 
 
 def input_projection(x_tm: torch.Tensor, w_ih: torch.Tensor,
@@ -112,10 +113,13 @@ class BiGRU(nn.Module):
 def dropout_mask(y: torch.Tensor, rate: float,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
     """Keep-mask scaled by 1/(1 - rate), drawn from ``generator`` (which
-    lives on ``y``'s device)."""
+    lives on ``y``'s device). ``y`` is time-major (L, B, C); in a process
+    group the mask is drawn for the global batch and this process's rows
+    are taken (``parallel/mesh.py:global_rows``)."""
     if generator is None:
         raise ValueError("train-mode dropout draws from an explicit "
                          "torch.Generator; pass generator=")
     keep = 1.0 - rate
-    mask = torch.empty_like(y).bernoulli_(keep, generator=generator)
+    mask = global_rows(lambda shape: y.new_empty(shape).bernoulli_(
+        keep, generator=generator), y.shape, dim=1)
     return mask / keep

@@ -6,6 +6,8 @@ from typing import Optional
 
 import torch
 
+from vae_gan_mark_tpu_torch.parallel.mesh import global_rows
+
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
                    eps: Optional[torch.Tensor] = None,
@@ -14,11 +16,14 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
     """z = mu + exp(0.5 * logvar) * eps, in float32.
 
     ``eps`` is the noise, of mu's shape; when None it is drawn N(0, I) in
-    float32 from ``generator``, which must live on mu's device."""
+    float32 from ``generator``, which must live on mu's device. In a
+    process group it is drawn at the global batch's shape and this
+    process's rows are taken (``parallel/mesh.py:global_rows``)."""
     mu = mu.float()
     if eps is None:
-        eps = torch.randn(mu.shape, generator=generator, device=mu.device,
-                          dtype=torch.float32)
+        eps = global_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=mu.device,
+            dtype=torch.float32), mu.shape)
     return mu + eps.to(mu.device, torch.float32) * torch.exp(
         0.5 * logvar.float())
 

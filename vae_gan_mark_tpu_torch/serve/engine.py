@@ -3,12 +3,11 @@ full-image path (crop the quad, generate, paste back).
 
 Inputs and outputs are NHWC numpy arrays, as in the JAX package's engine.
 Requests of any size go through in chunks of ``batch_size`` with the tail
-padded, so the GRU kernel and the convolutions always see one shape.
-
-The reparameterisation noise of the chunk that starts at request row
-``start`` comes from a CPU ``torch.Generator`` seeded from ``(seed, start)``
-(the counterpart of ``fold_in(rng, start)``) and is then moved to the
-device, so one seed gives the same noise on every device.
+padded, so the GRU kernel and the convolutions always see one shape
+(``serve/chunks.py``, which the exported artifact shares). The
+reparameterisation noise of the chunk that starts at request row ``start``
+comes from a CPU ``torch.Generator`` seeded from ``(seed, start)`` and is
+then moved to the device, so one seed gives the same noise on every device.
 
 ``InferenceEngine.from_checkpoint`` serves the generator of a trainer's
 checkpoint (``train/checkpoint.py``); ``python -m vae_gan_mark_tpu_torch.serve``
@@ -29,12 +28,8 @@ from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
 from vae_gan_mark_tpu_torch.ops.warp import (
     perspective_crop_batch, perspective_unwarp)
-
-
-def chunk_seed(seed: int, start: int) -> int:
-    """A 63-bit seed for the chunk starting at request row ``start``."""
-    state = np.random.SeedSequence([seed, start]).generate_state(2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
+from vae_gan_mark_tpu_torch.serve.chunks import (  # noqa: F401 (chunk_seed)
+    chunk_noise, chunk_seed, generate_in_chunks)
 
 
 class InferenceEngine:
@@ -93,19 +88,10 @@ class InferenceEngine:
         return encode_texts(self.cfg, self.tokenizer, self.text_embed_fn,
                             texts)
 
-    def _pad(self, arr: np.ndarray) -> np.ndarray:
-        n = arr.shape[0]
-        if n == self.batch_size:
-            return arr
-        pad = [(0, self.batch_size - n)] + [(0, 0)] * (arr.ndim - 1)
-        return np.pad(arr, pad)
-
     def noise(self, start: int) -> torch.Tensor:
         """The (batch_size, 1, 1, z_ch) float32 noise of the chunk at
         ``start``, on the CPU."""
-        gen = torch.Generator().manual_seed(chunk_seed(self.seed, start))
-        return torch.randn((self.batch_size, 1, 1, self.cfg.z_ch),
-                           generator=gen, dtype=torch.float32)
+        return chunk_noise(self.seed, start, self.batch_size, self.cfg.z_ch)
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.tensor(arr, device=self.device)    # a copy
@@ -115,23 +101,17 @@ class InferenceEngine:
                  texts: Sequence[str]) -> np.ndarray:
         """ru (N, H, W, 3), mask (N, H, W, 1) float in [0, 1]; returns the
         (N, H, W, 3) float32 patches."""
-        n = ru.shape[0]
-        texts = list(texts)
-        outs = []
-        for start in range(0, n, self.batch_size):
-            end = min(start + self.batch_size, n)
-            m = end - start
-            text = self._encode_texts(
-                texts[start:end] + [""] * (self.batch_size - m))
-            recon, _, _ = self.model(
-                self._to_device(self._pad(np.asarray(ru[start:end],
-                                                     np.float32))),
-                self._to_device(self._pad(np.asarray(mask[start:end],
-                                                     np.float32))),
-                as_batch_tensor("text", self._to_device(text)),
-                eps=self.noise(start).to(self.device))
-            outs.append(recon[:m].cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        return generate_in_chunks(self._run_chunk, self._encode_texts, ru,
+                                  mask, texts, self.batch_size, self.seed,
+                                  self.cfg.z_ch)
+
+    def _run_chunk(self, ru: np.ndarray, mask: np.ndarray, text: np.ndarray,
+                   eps: torch.Tensor) -> np.ndarray:
+        recon, _, _ = self.model(
+            self._to_device(ru), self._to_device(mask),
+            as_batch_tensor("text", self._to_device(text)),
+            eps=eps.to(self.device))
+        return recon.cpu().numpy()
 
     @torch.no_grad()
     def render(self, image: np.ndarray, mask_image: np.ndarray,

@@ -14,7 +14,12 @@ A checkpoint is a directory ``root/name`` (``last_checkpoint``,
 
 A save writes ``name.tmp`` (clearing a stale one first) and then replaces
 ``name``, so a crash leaves either the old checkpoint or the new one.
-Single process only: the multi-host barriers come with data parallelism.
+
+In a process group (``parallel/``) every process holds the same state, so
+process 0 alone writes, fenced by barriers, and every process then checks
+that it sees the checkpoint: the workdir must be on storage that all of
+them share. A restore raises unless every process sees the checkpoint or
+none does, and then every process loads it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from vae_gan_mark_tpu_torch.parallel import mesh
 from vae_gan_mark_tpu_torch.train.schedule import PlateauState
 from vae_gan_mark_tpu_torch.train.state import (
     TrainState, load_optimizer_state)
@@ -39,9 +45,24 @@ def save_checkpoint(root: str, name: str, state: TrainState, epoch: int,
                     best_val: float, sched_g: PlateauState,
                     sched_d: PlateauState, lr_g: float, lr_d: float) -> str:
     """Write checkpoint ``root/name``, replacing any existing one; returns
-    its path."""
-    os.makedirs(root, exist_ok=True)
+    its path; only process 0 of a process group writes."""
     path = os.path.abspath(os.path.join(root, name))
+    mesh.barrier()
+    if mesh.process_index() == 0:
+        _write(path, state, epoch, best_val, sched_g, sched_d, lr_g, lr_d)
+    mesh.barrier()
+    if not os.path.isdir(path):
+        raise RuntimeError(
+            f"process {mesh.process_index()}: checkpoint {path} is not "
+            "visible after the save: with several processes the workdir "
+            "must be on storage that all of them share")
+    return path
+
+
+def _write(path: str, state: TrainState, epoch: int, best_val: float,
+           sched_g: PlateauState, sched_d: PlateauState, lr_g: float,
+           lr_d: float) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -59,7 +80,6 @@ def save_checkpoint(root: str, name: str, state: TrainState, epoch: int,
     if os.path.exists(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
-    return path
 
 
 def load_state_file(root: str, name: str, map_location="cpu",
@@ -78,11 +98,11 @@ def restore_checkpoint(root: str, name: str,
                        state: TrainState) -> Optional[Dict]:
     """Load checkpoint ``root/name`` into ``state`` (modules, optimizers,
     step) in place; returns its host meta, or None when there is no
-    checkpoint."""
+    checkpoint (on every process of a group, or raises)."""
+    if not mesh.agree(os.path.isfile(os.path.join(root, name, STATE_FILE))):
+        return None
     device = next(state.generator.parameters()).device
     saved = load_state_file(root, name, map_location=device)
-    if saved is None:
-        return None
     state.generator.load_state_dict(saved["generator"])
     state.discriminator.load_state_dict(saved["discriminator"])
     for opt, key in ((state.opt_g, "opt_g"), (state.opt_d, "opt_d")):

@@ -1,4 +1,4 @@
-"""Epoch driver (the JAX package's ``train/loop.py``, single device).
+"""The epoch loop (the JAX package's ``train/loop.py``).
 
 ``Trainer.fit`` runs, per epoch:
 
@@ -32,6 +32,17 @@ folds the same numbers into one key), so a resumed run draws what an
 uninterrupted one does. Learning rates are held as float32 values, as
 optax's injected hyperparameters are.
 
+In a process group (``parallel/distributed.py``: one process per card,
+each data source yielding this process's rows of every global batch, the
+same number of batches on every process) the steps compute the global
+batch's step (``train/step.py``) and their metrics are the processes'
+means, so the plateau lowers the rates at the same epoch everywhere. Only
+process 0 writes the metric record, the images and the checkpoints
+(``train/checkpoint.py`` fences its saves with barriers); every process
+resumes from the same checkpoint, and G and D are process 0's on every
+process after set-up. ``multi_step > 1`` and device-resident synthetic data
+are refused there, as the JAX package refuses them with several processes.
+
 The weights: ``init=(g_state_dict, d_state_dict)``, or without it a fresh
 init drawn from ``seed`` (``train/state.py:init_state_dicts``). The VGG
 head: ``vgg_state_dict``, or ``train/state.py:vgg_state_dict()`` (ported
@@ -52,11 +63,14 @@ import torch
 
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.data import as_batch_tensor
+from vae_gan_mark_tpu_torch.data.device_synthetic import (
+    DeviceResidentSynthetic)
 from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
 from vae_gan_mark_tpu_torch.ops.precision import torch_dtype
+from vae_gan_mark_tpu_torch.parallel import mesh
 from vae_gan_mark_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
-from vae_gan_mark_tpu_torch.train.metrics import MetricsLogger
+from vae_gan_mark_tpu_torch.train.metrics import MetricsLogger, NullLogger
 from vae_gan_mark_tpu_torch.train.schedule import (
     PlateauState, kl_weight_for_epoch, plateau_step)
 from vae_gan_mark_tpu_torch.train.state import (
@@ -65,6 +79,7 @@ from vae_gan_mark_tpu_torch.train.state import (
 from vae_gan_mark_tpu_torch.train.step import (
     build_eval_step, build_multi_eval_step, build_multi_train_step,
     build_train_step, make_generator)
+from vae_gan_mark_tpu_torch.utils.profiling import trace
 
 DataSource = Callable[[int], Iterator[dict]]
 StateDict = Mapping[str, torch.Tensor]
@@ -150,8 +165,24 @@ class Trainer:
         self.val_data = val_data
         self.workdir = workdir
         self.seed = seed
+        self.processes = mesh.process_count()
+        self.is_main = mesh.process_index() == 0
+        self.multi_step = max(int(multi_step), 1)
+        if mesh.active() and self.multi_step > 1:
+            raise ValueError("multi_step > 1 runs in one process without a "
+                             "process group, as the JAX package's multi "
+                             "step does")
+        if self.processes > 1 and isinstance(train_data,
+                                             DeviceResidentSynthetic):
+            raise ValueError("device-resident synthetic data holds the "
+                             "whole set in one process; a multi-process "
+                             "run loads each process's rows from the host")
         os.makedirs(workdir, exist_ok=True)
-        self.logger = logger or MetricsLogger(workdir, run_name=cfg.name)
+        # Every process sees the same metrics; process 0 writes them.
+        if logger is None:
+            logger = (MetricsLogger(workdir, run_name=cfg.name)
+                      if self.is_main else NullLogger())
+        self.logger = logger
         self.nan_guard = nan_guard
         self.profile_dir = profile_dir
 
@@ -165,7 +196,6 @@ class Trainer:
         self.vgg.to(self.device)
         self.train_step = build_train_step(cfg)
         self.eval_step = build_eval_step(cfg)
-        self.multi_step = max(int(multi_step), 1)
         if self.multi_step > 1:
             self.multi_train_step = build_multi_train_step(cfg)
             self.multi_eval_step = build_multi_eval_step(cfg)
@@ -175,6 +205,8 @@ class Trainer:
         self.sched_g = PlateauState()
         self.sched_d = PlateauState()
         self._maybe_resume()
+        mesh.replicate_(self.state.generator)
+        mesh.replicate_(self.state.discriminator)
 
     # ------------------------------------------------------------------
     def _maybe_resume(self):
@@ -230,6 +262,7 @@ class Trainer:
                 images += batch["ru"].shape[0]
                 count += 1
         avg = self._host_means(sums, count)
+        images *= self.processes             # each process ran its rows
         dt = time.time() - t0
         if self.nan_guard and avg and not np.isfinite(avg["loss_G"]):
             raise FloatingPointError(
@@ -308,7 +341,7 @@ class Trainer:
             weighted = {k: v * bsz for k, v in metrics.items()}
             sums = weighted if sums is None else {
                 k: sums[k] + weighted[k] for k in sums}
-            if len(triplets) < 16:
+            if len(triplets) < 16 and self.is_main:
                 fake_np = fake.cpu().numpy()
                 for i in range(min(bsz, 16 - len(triplets))):
                     triplets.append((to_numpy(host_batch["ru"][i]),
@@ -380,85 +413,76 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self, epochs: Optional[int] = None) -> float:
-        cfg = self.cfg
-        epochs = epochs if epochs is not None else cfg.epochs
-        for epoch in range(self.epoch, epochs):
-            profiler = None
-            if self.profile_dir and epoch == self.epoch + 1:
-                profiler = self._start_profile()
-            train_metrics = self.train_epoch(epoch)
-            log = {
-                "epoch": epoch + 1,
-                "train/generator_loss": train_metrics.get("loss_G", 0.0),
-                "train/discriminator_loss": train_metrics.get("loss_D", 0.0),
-                "train/recon_loss": train_metrics.get("recon", 0.0),
-                "train/kl_loss": train_metrics.get("kl", 0.0),
-                "train/gan_loss_g": train_metrics.get("gan_g", 0.0),
-                "train/perceptual_loss": train_metrics.get("perc", 0.0),
-                "train/images_per_sec": train_metrics.get("images_per_sec", 0.0),
-                "train_params/current_kl_weight": train_metrics.get("kl_weight", 0.0),
-                "learning_rate/generator": get_lr(self.state.opt_g),
-                "learning_rate/discriminator": get_lr(self.state.opt_d),
-            }
-
-            val_metrics = self.validate(epoch)
-            val_recon = val_metrics.get("recon", float("inf"))
-            if val_metrics:
-                log["val/recon_loss"] = val_recon
-                log["val/psnr"] = val_metrics.get("psnr", 0.0)
-                log["val/masked_l1"] = val_metrics.get("masked_l1", 0.0)
-                log["val/mark_recovery"] = val_metrics.get(
-                    "mark_recovery", 0.0)
-                if cfg.full_loss_val:
-                    log["val/generator_loss"] = val_metrics.get("loss_G", 0.0)
-                    log["val/discriminator_loss"] = val_metrics.get(
-                        "loss_D", 0.0)
-                    # The raw KL and the same average times the epoch's
-                    # annealed weight; val/kl_loss stays as the raw KL.
-                    kl_raw = val_metrics.get("kl", 0.0)
-                    log["val/kl_loss"] = kl_raw
-                    log["val/kl_loss_raw"] = kl_raw
-                    log["val/kl_loss_weighted"] = (
-                        kl_raw * train_metrics.get("kl_weight", 0.0))
-                    log["val/gan_loss_g"] = val_metrics.get("gan_g", 0.0)
-                    log["val/perceptual_loss"] = val_metrics.get("perc", 0.0)
-            self.logger.log(log, step=epoch + 1)
-
-            # ReduceLROnPlateau on val recon.
-            if cfg.scheduler is not None and val_metrics:
-                for opt, sched in ((self.state.opt_g, self.sched_g),
-                                   (self.state.opt_d, self.sched_d)):
-                    set_lr(opt, float32_value(plateau_step(
-                        cfg.scheduler, sched, val_recon, get_lr(opt))))
-
-            if val_recon < self.best_val:
-                self.best_val = val_recon
-                self.logger.set_summary("best_val_recon_loss", self.best_val)
-                best_path = self._save("best_model", epoch)
-                self.logger.log_model_artifact(best_path, epoch + 1,
-                                               self.best_val)
-            # last_checkpoint every cfg.save_every epochs and at the last
-            # one, so that resume and eval see the finished run.
-            if ((epoch + 1) % max(cfg.save_every, 1) == 0
-                    or epoch == epochs - 1):
-                self._save("last_checkpoint", epoch)
-
-            if profiler is not None:
-                profiler.stop()
-                profiler.export_chrome_trace(os.path.join(
-                    self.profile_dir, f"epoch{epoch + 1}.trace.json"))
+        epochs = epochs if epochs is not None else self.cfg.epochs
+        first = self.epoch
+        for epoch in range(first, epochs):
+            if self.profile_dir and epoch == first + 1:
+                with trace(self.profile_dir, f"epoch{epoch + 1}",
+                           self.device):
+                    self._fit_epoch(epoch, epochs)
+            else:
+                self._fit_epoch(epoch, epochs)
         return self.best_val
 
-    def _start_profile(self):
-        from torch.profiler import ProfilerActivity, profile
+    def _fit_epoch(self, epoch: int, epochs: int) -> None:
+        """One epoch: train, validate, log, plateau, saves."""
+        cfg = self.cfg
+        train_metrics = self.train_epoch(epoch)
+        log = {
+            "epoch": epoch + 1,
+            "train/generator_loss": train_metrics.get("loss_G", 0.0),
+            "train/discriminator_loss": train_metrics.get("loss_D", 0.0),
+            "train/recon_loss": train_metrics.get("recon", 0.0),
+            "train/kl_loss": train_metrics.get("kl", 0.0),
+            "train/gan_loss_g": train_metrics.get("gan_g", 0.0),
+            "train/perceptual_loss": train_metrics.get("perc", 0.0),
+            "train/images_per_sec": train_metrics.get("images_per_sec", 0.0),
+            "train_params/current_kl_weight": train_metrics.get("kl_weight", 0.0),
+            "learning_rate/generator": get_lr(self.state.opt_g),
+            "learning_rate/discriminator": get_lr(self.state.opt_d),
+        }
 
-        os.makedirs(self.profile_dir, exist_ok=True)
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        profiler = profile(activities=activities)
-        profiler.start()
-        return profiler
+        val_metrics = self.validate(epoch)
+        val_recon = val_metrics.get("recon", float("inf"))
+        if val_metrics:
+            log["val/recon_loss"] = val_recon
+            log["val/psnr"] = val_metrics.get("psnr", 0.0)
+            log["val/masked_l1"] = val_metrics.get("masked_l1", 0.0)
+            log["val/mark_recovery"] = val_metrics.get(
+                "mark_recovery", 0.0)
+            if cfg.full_loss_val:
+                log["val/generator_loss"] = val_metrics.get("loss_G", 0.0)
+                log["val/discriminator_loss"] = val_metrics.get(
+                    "loss_D", 0.0)
+                # The raw KL and the same average times the epoch's
+                # annealed weight; val/kl_loss stays as the raw KL.
+                kl_raw = val_metrics.get("kl", 0.0)
+                log["val/kl_loss"] = kl_raw
+                log["val/kl_loss_raw"] = kl_raw
+                log["val/kl_loss_weighted"] = (
+                    kl_raw * train_metrics.get("kl_weight", 0.0))
+                log["val/gan_loss_g"] = val_metrics.get("gan_g", 0.0)
+                log["val/perceptual_loss"] = val_metrics.get("perc", 0.0)
+        self.logger.log(log, step=epoch + 1)
+
+        # ReduceLROnPlateau on val recon.
+        if cfg.scheduler is not None and val_metrics:
+            for opt, sched in ((self.state.opt_g, self.sched_g),
+                               (self.state.opt_d, self.sched_d)):
+                set_lr(opt, float32_value(plateau_step(
+                    cfg.scheduler, sched, val_recon, get_lr(opt))))
+
+        if val_recon < self.best_val:
+            self.best_val = val_recon
+            self.logger.set_summary("best_val_recon_loss", self.best_val)
+            best_path = self._save("best_model", epoch)
+            self.logger.log_model_artifact(best_path, epoch + 1,
+                                           self.best_val)
+        # last_checkpoint every cfg.save_every epochs and at the last
+        # one, so that resume and eval see the finished run.
+        if ((epoch + 1) % max(cfg.save_every, 1) == 0
+                or epoch == epochs - 1):
+            self._save("last_checkpoint", epoch)
 
     def _save(self, name: str, epoch: int) -> str:
         return save_checkpoint(

@@ -101,3 +101,23 @@ class MetricsLogger:
         self._file.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """The logger of a process other than process 0 in a multi-process
+    run: every process sees the same metrics, and process 0 writes them."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def log_images(self, *args, **kwargs):
+        pass
+
+    def log_model_artifact(self, *args, **kwargs):
+        pass
+
+    def set_summary(self, *args, **kwargs):
+        pass
+
+    def finish(self):
+        pass

@@ -47,6 +47,15 @@ package runs its float32 work (D, the GRU, their gradients) at HIGH or
 HIGHEST precision; so TF32 stays off for the whole step, backward included.
 BatchNorm statistics, the KL term and the losses are float32.
 
+In a process group (``parallel/``, one process per card, each with its
+rows of the global batch) each network's gradients are averaged over the
+processes, with one all-reduce, before clipping and its Adam step, and the
+metrics of both steps leave them as their mean over the processes; with
+BatchNorm's statistics, the noise and the dropout masks taken over the
+global batch (``parallel/mesh.py``), N processes compute the step of one
+process on the global batch. The multi steps refuse a process group: their
+graphs would capture collectives.
+
 With ``cfg.conditional_disc`` every discriminator forward also takes the
 batch's ``text`` as its ``cond`` (the fused forward the text twice, once for
 the real and once for the fake half), as the JAX step does.
@@ -73,6 +82,7 @@ from vae_gan_mark_tpu_torch.losses import (
 from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
 from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
 from vae_gan_mark_tpu_torch.ops import gru
+from vae_gan_mark_tpu_torch.parallel import mesh
 from vae_gan_mark_tpu_torch.train.graphs import (
     CapturedStep, is_warm, mark_warm)
 from vae_gan_mark_tpu_torch.train.state import (
@@ -141,6 +151,7 @@ def build_train_step(cfg: VariantConfig):
                             + hinge_d_fake(fake_preds))
             state.opt_d.zero_grad(set_to_none=True)
             loss_d.backward()
+            mesh.average_gradients_(d_model.parameters())
             state.opt_d.step()
 
             # 3. Generator update against the updated discriminator.
@@ -156,12 +167,14 @@ def build_train_step(cfg: VariantConfig):
                 loss_g.backward()
             finally:
                 d_model.requires_grad_(True)
+            mesh.average_gradients_(g_model.parameters())
             clip_by_global_norm_(g_model.parameters(), cfg.grad_clip_norm)
             state.opt_g.step()
         state.step += 1
         metrics = {"loss_G": loss_g, "loss_D": loss_d, "recon": recon_l,
                    "kl": kl, "gan_g": gan, "perc": perc}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, mesh.mean_over_processes(
+            {k: v.detach() for k, v in metrics.items()})
 
     return step
 
@@ -198,9 +211,16 @@ def build_eval_step(cfg: VariantConfig):
                     "loss_G": _g_loss(cfg, kl_weight, recon_l, kl, gan, perc),
                     "loss_D": 0.5 * (hinge_d_real(real_preds)
                                      + hinge_d_fake(fake_preds))})
-        return metrics, fake
+        return mesh.mean_over_processes(metrics), fake
 
     return step
+
+
+def _refuse_process_group() -> None:
+    if mesh.active():
+        raise RuntimeError("multi_step > 1 runs one process without a "
+                           "process group (as the JAX package's multi step "
+                           "runs one process); use multi_step=1")
 
 
 def _adam_ready(state: TrainState) -> bool:
@@ -262,6 +282,8 @@ def build_multi_train_step(cfg: VariantConfig):
     def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
              seed: int, kl_weight,
              sums: Optional[Metrics] = None) -> Tuple[TrainState, Metrics]:
+        _refuse_process_group()
+
         def capture(inputs, generator, kl):
             step0 = state.step
             _, metrics = single(state, vgg, inputs, generator, kl)
@@ -301,6 +323,8 @@ def build_multi_eval_step(cfg: VariantConfig):
     def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
              idxs: Sequence[int], seed: int, kl_weight
              ) -> Tuple[List[Metrics], torch.Tensor]:
+        _refuse_process_group()
+
         def capture(inputs, generator, kl):
             return single(state, vgg, inputs, generator, kl)
 
