@@ -104,16 +104,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    2e-2 in bf16), 2 GRU forward launches a chunk inside that process, and
    img/s of artifact and engine at bs 16; then ``python -m
    vae_gan_mark_tpu_torch.doctor``, every check ok;
-15. print the kernels' JSON line and, last, the device line.
+15. the device loader (``data/device_pipeline.py``): an on-disk dataset of
+   24 noise creatives of 1280x720 with 8 quads each (192 samples,
+   ``benchmarks/loader_bench.py``'s shapes), ``DeviceWarpLoader`` on the
+   card against ``HostWarpLoader`` for v2 448x64 at bs 16 (mean abs per
+   stream < 0.02, texts equal), both loaders' img/s over an epoch (the
+   copies to the card included) and the warp's ms a batch; the train CLI
+   with ``--loader device`` for one bf16 epoch at bs 16, with K=1 and
+   K=4 (2 + 2 GRU launches a train step, 2 a val batch), and its refusal
+   of ``--patch-cache``;
+16. the model axis (``parallel/mesh.py``): 4 processes on the one card
+   over gloo, data 2 x model 2, G's widest kernels partitioned
+   (``kernel_min_ch`` 512), v2 at full width, f32, both rates 0, 3 steps
+   at a global batch of 8 with ``cudnn.deterministic``, against one
+   process at 8 rows (phase 13b's limits on the metrics, the BatchNorm
+   statistics and u, and the gathered Adam moments), the data ranks'
+   blocks equal bit for bit, the generator parameters each rank holds
+   (54.96M), 2 + 2 GRU launches a step in each process; then ``python -m
+   vae_gan_mark_tpu_torch.parallel.dryrun --processes 4`` at full width;
+17. print the kernels' JSON line and, last, the device line.
 
-``python3 chip_smoke.py --dp-worker RANK PORT OUT`` and ``--serve-artifact
-DIR REQUEST OUT`` are phases 13 and 14's child processes.
+``python3 chip_smoke.py --dp-worker RANK PORT OUT``, ``--serve-artifact
+DIR REQUEST OUT`` and ``--tp-worker RANK PORT OUT`` are phases 13, 14 and
+16's child processes.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -2469,6 +2489,411 @@ def phase_doctor() -> dict:
     return dict(seconds=seconds, lines=lines)
 
 
+# Phase 15: the device loader. The dataset of benchmarks/loader_bench.py
+# (its defaults: 24 creatives of 1280x720, 8 text quads each, 192 samples)
+# in the reference's layout, made from a seed with Pillow; it lives in
+# RUNS_DIR (about 200 MB of PNGs, more than OUT_DIR may bring back) and is
+# removed at the end of the phase. Device against host loader: mean abs
+# per stream < 0.02 (tests/test_device_pipeline.py: cv2's fixed-point warp
+# against a float one, plus the bucket's resampling of oversized regions).
+LOADER_IMAGES, LOADER_QUADS, LOADER_SIZE = 24, 8, (1280, 720)
+LOADER_MEAN_ABS = 0.02
+# Phase 16: the model axis. 4 processes (data 2 x model 2) on the one card
+# over gloo against one process at the same global batch of 8, float32,
+# both learning rates 0 (phase 13's reasons), phase 13b's limits.
+TP_PROCESSES, TP_MODEL, TP_BATCH, TP_STEPS = 4, 2, 8, 3
+TP_G_PARAMS_PER_RANK = 54.96e6      # tests/test_torch_port_model_axis.py
+
+
+def write_loader_dataset(root: str) -> dict:
+    """benchmarks/loader_bench.py's on-disk dataset: noise creatives (RU,
+    EN, mask PNGs) with LOADER_QUADS quads each, from seed 0."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    dirs = {k: os.path.join(root, k) for k in ("json", "ru", "en", "mask")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    w, h = LOADER_SIZE
+    for i in range(LOADER_IMAGES):
+        base = f"img{i:03d}"
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)).save(
+            os.path.join(dirs["ru"], base + "_ru.png"))
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)).save(
+            os.path.join(dirs["en"], base + "_en.png"))
+        Image.fromarray(rng.integers(0, 255, (h, w), np.uint8)).save(
+            os.path.join(dirs["mask"], base + "_ru.png"))
+        anns = []
+        for _ in range(LOADER_QUADS):
+            x0 = int(rng.integers(0, w - 500))
+            y0 = int(rng.integers(0, h - 120))
+            quad = [[x0, y0], [x0 + 460, y0 + 6], [x0 + 452, y0 + 80],
+                    [x0 - 4, y0 + 72]]
+            anns.append({"bbox_ru": quad, "bbox_en": quad, "text": "Sample"
+                         f" {i}-{len(anns)}"})
+        with open(os.path.join(dirs["json"], base + ".json"), "w") as f:
+            json.dump(anns, f)
+    return dirs
+
+
+def drain_loader(loader, to_card) -> tuple:
+    """One epoch of ``loader``, each batch's streams on the card
+    (``to_card``), ending in ``synchronize()``: (batches, img/s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = []
+    for batch in loader(0):
+        batches.append({**batch, **to_card(batch)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return batches, sum(len(b["raw_text"]) for b in batches) / seconds
+
+
+def phase_device_loader(gru, card: str) -> dict:
+    """Phase 15: ``DeviceWarpLoader(device="cuda")`` against
+    ``HostWarpLoader`` on the same samples (v2 448x64, bs 16), both
+    loaders' img/s over an epoch, and the train CLI with ``--loader
+    device`` for one bf16 epoch at bs 16, K=1 and K=4 (2 + 2 GRU launches
+    a train step, 2 a val batch), and its refusal of ``--patch-cache``."""
+    import shutil
+
+    from vae_gan_mark_tpu_torch import cli
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.data.device_pipeline import DeviceWarpLoader
+    from vae_gan_mark_tpu_torch.data.index import build_index, grouped_split
+    from vae_gan_mark_tpu_torch.data.pipeline import HostWarpLoader
+
+    root = os.path.join(RUNS_DIR, "loader")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    dirs = write_loader_dataset(os.path.join(root, "data"))
+    write_s = time.perf_counter() - t0
+    samples = build_index(dirs["json"], dirs["ru"], dirs["en"], dirs["mask"])
+    check(len(samples) == LOADER_IMAGES * LOADER_QUADS,
+          f"phase 15: indexed {len(samples)} samples")
+    cfg = get_config("v2", compute_dtype="bfloat16", batch_size=BATCH)
+    idx = list(range(len(samples)))
+    common = dict(batch_size=BATCH, shuffle=False, drop_last=True,
+                  num_workers=8)
+    device_loader = DeviceWarpLoader(cfg, samples, idx, device="cuda",
+                                     **common)
+    host_loader = HostWarpLoader(cfg, samples, idx, **common)
+
+    def host_to_card(batch):
+        return {k: torch.from_numpy(batch[k]).pin_memory().to(
+            "cuda", non_blocking=True) for k in ("ru", "en", "mask")}
+
+    result = dict(samples=len(samples), write_s=write_s, card=card)
+    drained = {}
+    for name, loader, to_card in (("device", device_loader, dict),
+                                  ("host", host_loader, host_to_card)):
+        drained[name], rate = drain_loader(loader, to_card)
+        result[name] = dict(img_per_s=rate, batches=len(drained[name]))
+    dev_b, host_b = drained.pop("device"), drained.pop("host")
+    mean_abs = {key: max(float((d[key] - h[key]).abs().mean())
+                         for d, h in zip(dev_b, host_b))
+                for key in ("ru", "en", "mask")}
+    texts_equal = all(d["raw_text"] == h["raw_text"]
+                      and np.array_equal(d["text"], h["text"])
+                      for d, h in zip(dev_b, host_b))
+    on_card = all(d[k].is_cuda for d in dev_b for k in ("ru", "en", "mask"))
+    print(f"[loader] {len(samples)} samples of {LOADER_SIZE[0]}x"
+          f"{LOADER_SIZE[1]} creatives written in {write_s:.1f} s; device "
+          f"loader {result['device']['img_per_s']:.1f} img/s, host loader "
+          f"(cv2, to the card) {result['host']['img_per_s']:.1f} img/s at "
+          f"bs={BATCH}, 8 workers, on {card}; device vs host mean abs per "
+          f"stream {mean_abs} (limit {LOADER_MEAN_ABS}), texts equal "
+          f"{texts_equal}", flush=True)
+    check(on_card and texts_equal and len(dev_b) == len(host_b)
+          and max(mean_abs.values()) < LOADER_MEAN_ABS,
+          f"phase 15: device loader vs host loader: {mean_abs}, texts "
+          f"equal {texts_equal}, on the card {on_card}")
+    result["mean_abs"] = mean_abs
+    del dev_b, host_b
+
+    # The loader's warp of one batch of prepared buckets (stacking, the
+    # pinned upload and the wait included), and the warp alone on buckets
+    # already on the card.
+    from vae_gan_mark_tpu_torch.data.device_pipeline import (
+        _prep_sample, warp_buckets)
+    loaded = [_prep_sample(samples[i]) for i in range(BATCH)]
+    result["warp_ms"] = cuda_time_ms(lambda: device_loader.warp(loaded), 10)
+    buckets = [torch.from_numpy(np.stack([s[i] for s in loaded])).cuda()
+               for i in (0, 1, 2, 3)]
+    buckets.append(torch.tensor([s[4] for s in loaded], device="cuda"))
+    buckets += [torch.from_numpy(np.stack([s[i] for s in loaded])).cuda()
+                for i in (5, 6)]
+    result["warp_on_card_ms"] = cuda_time_ms(
+        lambda: warp_buckets(cfg, *buckets), 10)
+    print(f"[loader] warp of a batch of {BATCH}: {result['warp_ms']:.2f} ms "
+          f"with the stacking and the upload, {result['warp_on_card_ms']:.2f}"
+          f" ms on buckets already on the card", flush=True)
+
+    train_idx, val_idx = grouped_split(samples, cfg.val_split,
+                                       cfg.split_seed)
+    steps, val_batches = len(train_idx) // BATCH, -(-len(val_idx) // BATCH)
+    args = ["--variant", "v2", "--json-dir", dirs["json"], "--ru-dir",
+            dirs["ru"], "--en-dir", dirs["en"], "--mask-dir", dirs["mask"],
+            "--batch-size", str(BATCH), "--epochs", "1", "--loader",
+            "device", "--set", "compute_dtype=bfloat16"]
+    for k in (1, 4):
+        workdir = os.path.join(root, f"run_k{k}")
+        zero_gru_counts(gru)
+        t0 = time.perf_counter()
+        cli.main(args + ["--workdir", workdir, "--multi-step", str(k)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = gru_counts(gru)
+        record = read_records(workdir)[-1]
+        expected = (2 * steps + 2 * val_batches, 2 * steps)
+        print(f"[loader] train CLI --loader device --multi-step {k}: 1 "
+              f"epoch of {steps} bf16 steps at bs={BATCH} and {val_batches} "
+              f"val batches in {seconds:.1f} s (checkpoints included), "
+              f"{record['train/images_per_sec']:.1f} img/s through the "
+              f"Trainer, loss_G {record['train/generator_loss']:.4f}; GRU "
+              f"launches {launches}, expected {expected}", flush=True)
+        check(launches == expected,
+              f"phase 15 K={k}: GRU launches {launches}, expected {expected}")
+        check(np.isfinite(record["train/generator_loss"]),
+              f"phase 15 K={k}: non-finite loss {record}")
+        result[f"cli_k{k}"] = dict(
+            seconds=seconds, launches=launches, steps=steps,
+            val_batches=val_batches,
+            img_per_s=record["train/images_per_sec"],
+            loss_G=record["train/generator_loss"])
+    try:
+        cli.main(args + ["--workdir", os.path.join(root, "refused"),
+                         "--patch-cache", os.path.join(root, "cache")])
+        refused = None
+    except SystemExit as e:
+        refused = e.code
+    check(isinstance(refused, str) and "--patch-cache requires --loader "
+          "host" in refused,
+          f"phase 15: --patch-cache with --loader device: {refused!r}")
+    print(f"[loader] --patch-cache with --loader device exits: {refused}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return result
+
+
+def tp_worker(rank: int, port: int, out_path: str) -> int:
+    """One of phase 16's four processes: gloo on the one card, data 2 x
+    model 2, v2 at full width, float32, both rates 0, G partitioned at
+    kernel_min_ch 512; 4 rows of each global batch of 8. Then the same
+    batches at both rates 1e-4 with cuDNN's default algorithms, and a
+    digest of each whole parameter."""
+    sys.path.insert(0, ROOT)
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.ops import gru
+    from vae_gan_mark_tpu_torch.parallel import distributed, mesh
+    from vae_gan_mark_tpu_torch.train import build_train_step
+    from vae_gan_mark_tpu_torch.train.step import make_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = distributed.initialize(f"localhost:{port}", TP_PROCESSES, rank,
+                                    backend="gloo", device="cuda")
+    layout = mesh.make_mesh(TP_MODEL)
+    cfg = get_config("v2", compute_dtype="float32", lr_g=0.0, lr_d=0.0)
+    batches = [mesh.shard_batch(train_batch(cfg, TP_BATCH, 400 + i, device))
+               for i in range(TP_STEPS)]
+    state, vgg = make_trainer(cfg, train_weights(cfg), device)
+    mesh.replicate_(state.generator)
+    mesh.partition_params(state.generator, kernel_min_ch=512)
+    g = state.generator
+    step = build_train_step(cfg)
+    torch.cuda.synchronize()
+    gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    metrics, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, vgg, batch, make_generator(device, 7,
+                                                          state.step), 1e-3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+    params = dict(g.named_parameters())
+    moments = {f"G.{n}": (opt_m if mesh.sharded_dim(p) is None else
+                          mesh.gather_tensor(opt_m, mesh.sharded_dim(p)))
+               .cpu() for n, p in params.items()
+               for opt_m in [state.opt_g.state[p]["exp_avg"]]}
+    moments.update({f"D.{n}": state.opt_d.state[p]["exp_avg"].cpu()
+                    for n, p in state.discriminator.named_parameters()})
+    blocks = {n: p.detach().cpu() for n, p in params.items()
+              if mesh.sharded_dim(p) is not None}
+    block_moments_sized = all(
+        state.opt_g.state[p][k].shape == p.shape for p in params.values()
+        for k in ("exp_avg", "exp_avg_sq"))
+    buffers = {k: v.cpu() for k, v in watched_buffers(state).items()}
+    # The same batches again at both rates with cuDNN's default algorithms,
+    # whose float32 atomics make the model ranks' gradients differ in
+    # rounding: their whole parameters must stay equal bit for bit.
+    from vae_gan_mark_tpu_torch.train.state import set_lr
+    torch.backends.cudnn.deterministic = False
+    set_lr(state.opt_g, 1e-4)
+    set_lr(state.opt_d, 1e-4)
+    drift_metrics = []
+    for batch in batches:
+        state, m = step(state, vgg, batch, make_generator(device, 7,
+                                                          state.step), 1e-3)
+        drift_metrics.append({k: float(v) for k, v in m.items()})
+    whole = {f"G.{n}": p for n, p in g.named_parameters()
+             if mesh.sharded_dim(p) is None}
+    whole.update({f"D.{n}": p
+                  for n, p in state.discriminator.named_parameters()})
+    digests = {k: hashlib.sha1(p.detach().cpu().numpy().tobytes())
+               .hexdigest() for k, p in whole.items()}
+    torch.save(dict(metrics=metrics, ms=times, launches=launches,
+                    drift_metrics=drift_metrics, digests=digests,
+                    moments=moments, blocks=blocks, buffers=buffers,
+                    block_moments_sized=block_moments_sized,
+                    g_parameters=sum(p.numel() for p in g.parameters()),
+                    mesh=dict(layout.shape, data_index=layout.data_index,
+                              model_index=layout.model_index)), out_path)
+    distributed.shutdown()
+    return 0
+
+
+def run_workers(flag: str, count: int, timeout: float) -> tuple:
+    """``count`` processes of this script with ``flag RANK PORT OUT``, on
+    the one card; their saved results and the seconds they took."""
+    port = free_port()
+    os.makedirs(RUNS_DIR, exist_ok=True)
+    outs = [os.path.join(RUNS_DIR, f"{flag[2:]}_rank{r}.pt")
+            for r in range(count)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r), str(port),
+         outs[r]], cwd=ROOT, env=child_env(LOCAL_RANK="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(count)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"{flag} process {r} exited "
+              f"{proc.returncode}: {log[-3000:]}")
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    for o in outs:
+        os.remove(o)
+    return ranks, seconds
+
+
+def phase_model_axis(gru, card: str) -> dict:
+    """Phase 16: 4 processes, data 2 x model 2, against one process at the
+    same global batch (v2 full width, f32, rates 0, cudnn.deterministic);
+    the model ranks' whole parameters equal bit for bit after steps at
+    both rates with cuDNN's default algorithms; then ``python -m
+    vae_gan_mark_tpu_torch.parallel.dryrun --processes 4`` at full
+    width."""
+    from vae_gan_mark_tpu_torch.config import get_config
+
+    ranks, workers_s = run_workers("--tp-worker", TP_PROCESSES, 600)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = get_config("v2", compute_dtype="float32", lr_g=0.0, lr_d=0.0)
+        batches = [train_batch(cfg, TP_BATCH, 400 + i, "cuda")
+                   for i in range(TP_STEPS)]
+        one = dp_run(gru, cfg, train_weights(cfg), batches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    metric_rel = max(abs(r["metrics"][i][k] - one["metrics"][i][k])
+                     / max(abs(one["metrics"][i][k]), 1e-12)
+                     for r in ranks for i in range(TP_STEPS)
+                     for k in one["metrics"][i])
+    buffer_err = max(float((r["buffers"][k] - v).abs().max())
+                     for r in ranks for k, v in one["buffers"].items())
+    moment_l2, moment_noise = dp_moment_spread(
+        one["moments"], [r["moments"] for r in ranks])
+    blocks_equal = all(
+        torch.equal(ranks[r]["blocks"][k], ranks[r % TP_MODEL]["blocks"][k])
+        for r in range(TP_MODEL, TP_PROCESSES) for k in ranks[r]["blocks"])
+    held = [r["g_parameters"] for r in ranks]
+    whole = sum(v.numel() for k, v in one["moments"].items()
+                if k.startswith("G."))
+    # The model ranks of a data index after the steps at both rates with
+    # cuDNN's default algorithms: their whole parameters, and how far
+    # their metrics (averaged over the data group alone) part.
+    peers = [(r, r - r % TP_MODEL) for r in range(TP_PROCESSES)
+             if r % TP_MODEL]
+    whole_equal = all(ranks[r]["digests"] == ranks[q]["digests"]
+                      for r, q in peers)
+    drift_metric = max(abs(a[k] - b[k]) for r, q in peers
+                       for a, b in zip(ranks[r]["drift_metrics"],
+                                       ranks[q]["drift_metrics"])
+                       for k in a)
+    print(f"[tp] {TP_PROCESSES} processes (data {TP_PROCESSES // TP_MODEL} "
+          f"x model {TP_MODEL}, gloo, one card) vs 1 process at "
+          f"{TP_BATCH} rows, {TP_STEPS} f32 steps: metrics max rel "
+          f"{metric_rel:.3e} (limit {DP_METRIC_RTOL}), BN statistics and u "
+          f"max abs {buffer_err:.3e} (limit {DP_BUFFER_ATOL}), Adam moments "
+          f"per tensor L2 {moment_l2:.3e} (limit {STEP_MOMENT_L2}; "
+          f"zero-gradient noise {moment_noise:.3e}, limit "
+          f"{STEP_MOMENT_ZERO}), data ranks' blocks equal {blocks_equal}, "
+          f"{len(ranks[0]['blocks'])} leaves sharded, G parameters held per "
+          f"rank {held} (one process {whole}); GRU launches "
+          f"{[r['launches'] for r in ranks]}; ms a step "
+          f"{[[round(t, 1) for t in r['ms']] for r in ranks]} (one process "
+          f"{[round(t, 1) for t in one['ms']]}); workers {workers_s:.1f} s "
+          f"on {card}", flush=True)
+    print(f"[tp] {TP_STEPS} more steps at both rates 1e-4 with cuDNN's "
+          f"default algorithms: model ranks' whole parameters (G's "
+          f"{len(ranks[0]['digests'])} whole leaves with D's) equal bit for "
+          f"bit {whole_equal}; their metrics differ by up to "
+          f"{drift_metric:.3e}", flush=True)
+    check(whole_equal, "phase 16: the model ranks' whole parameters "
+          "parted at both rates")
+    check(blocks_equal, "phase 16: data ranks hold different blocks")
+    check(all(r["block_moments_sized"] for r in ranks),
+          "phase 16: an Adam moment is not its parameter's block size")
+    check(all(abs(h - TP_G_PARAMS_PER_RANK) < 0.005e6 for h in held),
+          f"phase 16: G parameters per rank {held}")
+    check(metric_rel <= DP_METRIC_RTOL and buffer_err <= DP_BUFFER_ATOL
+          and moment_l2 <= STEP_MOMENT_L2
+          and moment_noise <= STEP_MOMENT_ZERO,
+          f"phase 16: TP vs 1 process: metrics {metric_rel}, buffers "
+          f"{buffer_err}, moments {moment_l2} (noise {moment_noise})")
+    for r in ranks:
+        check(tuple(r["launches"]) == (2 * TP_STEPS, 2 * TP_STEPS),
+              f"phase 16: GRU launches {r['launches']}, expected 2 + 2 a "
+              f"step over {TP_STEPS} steps")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vae_gan_mark_tpu_torch.parallel.dryrun",
+         "--processes", str(TP_PROCESSES)], cwd=ROOT,
+        env=child_env(), capture_output=True, text=True, timeout=600)
+    dryrun_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun")]
+    for line in lines:
+        print(f"[tp] {line}", flush=True)
+    check(proc.returncode == 0 and len(lines) == TP_PROCESSES
+          and all(" ok: " in ln for ln in lines),
+          f"phase 16: the dry run exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    print(f"[tp] dry run of {TP_PROCESSES} processes: {dryrun_s:.1f} s",
+          flush=True)
+    return dict(metric_max_rel=metric_rel, buffer_max_abs=buffer_err,
+                moment_max_l2=moment_l2, moment_noise=moment_noise,
+                blocks_equal=blocks_equal, g_parameters=held,
+                whole_equal_at_rates=whole_equal,
+                model_rank_metric_spread=drift_metric,
+                sharded_leaves=len(ranks[0]["blocks"]),
+                launches=[r["launches"] for r in ranks],
+                ms=[r["ms"] for r in ranks], one_process_ms=one["ms"],
+                workers_s=workers_s, dryrun_s=dryrun_s, dryrun=lines,
+                card=card)
+
+
 KERNEL_CLASSES = (  # first match wins; matched against the kernel's name
     ("gru forward kernel", ("gru_fwd_kernel",)),
     ("gru backward kernel", ("gru_bwd_kernel",)),
@@ -2578,14 +3003,23 @@ def main() -> int:
     export = phase_export(gru, card)
     t_doctor = time.perf_counter()
     doctor = phase_doctor()
-    t_end = time.perf_counter()
+    t_loader = time.perf_counter()
     print(f"[done] phase 13 (data parallel) took {t_export - t_dp:.1f} s, "
           f"phase 14 (export) {t_doctor - t_export:.1f} s, doctor "
-          f"{t_end - t_doctor:.1f} s", flush=True)
+          f"{t_loader - t_doctor:.1f} s", flush=True)
+    loader = phase_device_loader(gru, card)
+    t_tp = time.perf_counter()
+    tp = phase_model_axis(gru, card)
+    t_end = time.perf_counter()
+    print(f"[done] phase 15 (device loader) took {t_tp - t_loader:.1f} s, "
+          f"phase 16 (model axis) {t_end - t_tp:.1f} s", flush=True)
     new_phases_s = dict(multi_step=t_oldv - t_new, oldv=t_vanilla - t_oldv,
                         vanilla=t_cond - t_vanilla, cond_disc=t_dp - t_cond,
                         data_parallel=t_export - t_dp,
-                        export=t_doctor - t_export, doctor=t_end - t_doctor)
+                        export=t_doctor - t_export,
+                        doctor=t_loader - t_doctor,
+                        device_loader=t_tp - t_loader,
+                        model_axis=t_end - t_tp)
     print(f"[done] phase 9 took {new_phases_s['multi_step']:.1f} s, phase "
           f"10 {new_phases_s['oldv']:.1f} s", flush=True)
 
@@ -2616,7 +3050,10 @@ def main() -> int:
                  vanilla_train=vanilla["launches"]["train"][0],
                  cond_v2_train=cond["v2_train"]["launches"][0],
                  dp_train=dp["two_processes"]["launches"][0][0],
-                 export_serve=export["float32"]["launches"][0]),
+                 export_serve=export["float32"]["launches"][0],
+                 device_loader_train=loader["cli_k1"]["launches"][0],
+                 device_loader_train_k4=loader["cli_k4"]["launches"][0],
+                 tp_train=tp["launches"][0][0]),
              max_abs_err=max(r["max_abs_err"] for r in forward["rows"]),
              directions_per_launch=fwd_row["directions_per_launch"],
              ms=fwd_row["ms"], single_direction_ms=fwd_row["single_ms"],
@@ -2641,7 +3078,10 @@ def main() -> int:
                  vanilla_train=vanilla["launches"]["train"][1],
                  cond_v2_train=cond["v2_train"]["launches"][1],
                  dp_train=dp["two_processes"]["launches"][0][1],
-                 export_serve=export["float32"]["launches"][1]),
+                 export_serve=export["float32"]["launches"][1],
+                 device_loader_train=loader["cli_k1"]["launches"][1],
+                 device_loader_train_k4=loader["cli_k4"]["launches"][1],
+                 tp_train=tp["launches"][0][1]),
              max_abs_err=max(r["max_abs_err"] for r in backward["rows"]),
              directions_per_launch=bwd_row["directions_per_launch"],
              ms=bwd_row["ms"], kernel_ms=bwd_row["kernel_ms"],
@@ -2670,6 +3110,7 @@ def main() -> int:
                        multi_step=multi, multi_step_driver=multi_driver,
                        oldv=oldv, vanilla=vanilla, cond_disc=cond,
                        data_parallel=dp, export=export, doctor=doctor,
+                       device_loader=loader, model_axis=tp,
                        new_phases_s=new_phases_s,
                        kernels=kernels),
                   f, indent=1,
@@ -2687,6 +3128,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--serve-artifact"]:
         sys.exit(serve_artifact(*sys.argv[2:5]))
     sys.exit(main())

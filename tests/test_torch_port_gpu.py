@@ -601,3 +601,140 @@ def test_export_round_trip_on_card(card, tmp_path):
     want = InferenceEngine(cfg, generator, batch_size=4, seed=2,
                            device=card).generate(ru, mask, texts)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def write_disk_dataset(root, n_images=2, quads=3):
+    """A small on-disk dataset in the reference's layout, from seed 0."""
+    import json
+    import os
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    dirs = {k: os.path.join(root, k) for k in ("json", "ru", "en", "mask")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i in range(n_images):
+        base = f"img{i:03d}"
+        for kind, shape in (("ru", (240, 320, 3)), ("en", (240, 320, 3)),
+                            ("mask", (240, 320))):
+            name = f"{base}_en.png" if kind == "en" else f"{base}_ru.png"
+            Image.fromarray(rng.integers(0, 255, shape, np.uint8)).save(
+                os.path.join(dirs[kind], name))
+        anns = [{"bbox_ru": [[20 + 9 * j, 30], [130, 33 + j], [128, 80],
+                             [18, 76]],
+                 "bbox_en": [[22, 31], [126, 30], [127, 78 - j], [20, 77]],
+                 "text": f"text {i}-{j}"} for j in range(quads)]
+        with open(os.path.join(dirs["json"], f"{base}.json"), "w") as f:
+            json.dump(anns, f)
+    return dirs
+
+
+def test_device_loader_on_card_matches_cpu(card, tmp_path):
+    """``DeviceWarpLoader`` warping on the card (its own stream) against
+    the same loader on the CPU: atol 1e-5 (float32 homography solves and
+    taps on two devices), the texts equal."""
+    from vae_gan_mark_tpu_torch.data.device_pipeline import DeviceWarpLoader
+    from vae_gan_mark_tpu_torch.data.index import build_index
+
+    dirs = write_disk_dataset(str(tmp_path))
+    samples = build_index(dirs["json"], dirs["ru"], dirs["en"], dirs["mask"])
+    cfg = get_config("v2", **TINY)
+    got = {dev: list(DeviceWarpLoader(
+        cfg, samples, range(len(samples)), batch_size=4, drop_last=False,
+        seed=1, num_workers=2, device=dev)(0)) for dev in ("cuda", "cpu")}
+    assert len(got["cuda"]) == len(got["cpu"]) == 2
+    for g, c in zip(got["cuda"], got["cpu"]):
+        assert g["raw_text"] == c["raw_text"]
+        np.testing.assert_array_equal(g["text"], c["text"])
+        for key in ("ru", "en", "mask"):
+            assert g[key].is_cuda
+            torch.testing.assert_close(g[key].cpu(), c[key], rtol=0,
+                                       atol=1e-5)
+
+
+def run_tp_workers(tmp_path, setup, world, tp):
+    """``world`` processes of ``tests/torch_port_tp_worker.py`` on the card
+    over gloo, model_parallel ``tp``, running ``setup``'s jobs; their
+    results in rank order."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    torch.save(setup, tmp_path / "setup.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(root)
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_port_tp_worker.py"),
+         str(tmp_path / "setup.pt"), str(r), str(world), str(tp), str(port),
+         str(tmp_path), "cuda"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def test_model_axis_gather_over_gloo_on_cuda_tensors(card, tmp_path):
+    """Two processes on the card over gloo (model_parallel 2): the gather
+    of a CUDA block gives the whole tensor forward and this rank's slice of
+    the cotangent backward (``tests/torch_port_tp_worker.py``'s gather
+    job)."""
+    rng = np.random.default_rng(3)
+    full = torch.from_numpy(rng.normal(0, 1, (6, 8)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(0, 1, (6, 8)).astype(np.float32))
+    ranks = run_tp_workers(tmp_path, dict(jobs={"gather": dict(
+        kind="gather", full=full, dim=1, cotangent=cot)}), 2, 2)
+    for r, got in enumerate(ranks):
+        assert got["gather"]["device"].startswith("cuda")
+        assert torch.equal(got["gather"]["whole"], full)
+        assert torch.equal(got["gather"]["grad"], cot[:, 4 * r:4 * (r + 1)])
+
+
+def test_model_axis_whole_leaves_stay_equal_on_card(card, tmp_path):
+    """Four processes on the card over gloo, data 2 x model 2, float32,
+    both rates, cuDNN's default algorithms (the bilinear upsampling's
+    float32 backward adds with atomics: the model ranks' gradients differ
+    in rounding), three steps of v2 at the tiny geometry with the BiGRU's
+    weights, FiLM's predictor and the widest convs partitioned
+    (``kernel_min_ch`` 64): the model ranks of each data index still hold
+    G and D equal bit for bit, the blocks moved, and every process
+    launched the GRU kernels. Nothing averaged only over the data group
+    would keep them equal."""
+    from vae_gan_mark_tpu_torch.train.state import (
+        init_state_dicts, vgg_state_dict)
+
+    overrides = dict(TINY, enc_chans=(8, 16, 24, 64), bottleneck_ch=64,
+                     char_rnn_hidden=32)
+    cfg = get_config("v2", **overrides)
+    g_sd, d_sd = init_state_dicts(cfg, 0)
+    rng = np.random.default_rng(5)
+    shape = (4, cfg.patch_h, cfg.patch_w)
+    batches = [{"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+                "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+                "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
+                    np.float32),
+                "text": rng.integers(0, cfg.vocab_size,
+                                     (4, cfg.max_text_len))}
+               for _ in range(3)]
+    ranks = run_tp_workers(tmp_path, dict(
+        g=g_sd, d=d_sd, vgg=vgg_state_dict(),
+        jobs={"train": dict(kind="train", overrides=overrides,
+                            batches=batches, kl_weight=1e-3,
+                            kernel_min_ch=64)}), 4, 2)
+    for r, got in enumerate(ranks):
+        first = ranks[r - r % 2]["train"]
+        for net in ("g", "d"):
+            for key, value in got["train"][net].items():
+                assert torch.equal(value, first[net][key]), (r, net, key)
+        assert len(got["train"]["blocks"]) == 23
+        for key in got["train"]["blocks"]:
+            assert not torch.equal(got["train"]["g"][key], g_sd[key]), key
+        assert got["train"]["gru_launches"] == (6, 6)

@@ -49,6 +49,7 @@ print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
     for module in ("serve.engine", "ops.gru", "train.step",
                    "models.discriminator", "ops.conv_probe", "serve.export",
                    "serve.chunks", "parallel.mesh", "parallel.distributed",
+                   "parallel.dryrun", "data.device_pipeline",
                    "doctor", "data.acquire", "utils.profiling",
                    "utils.debug", "utils.reference_checkpoint"):
         assert f"vae_gan_mark_tpu_torch.{module}" in result["imported"]

@@ -155,7 +155,7 @@ def make_batch(cfg, seed, batch: int = BATCH):
 
 def jax_init(variant, **overrides):
     """The JAX package's own train state for ``variant`` at ``TRAIN``."""
-    cfg = jax_get_config(variant, **TRAIN, **overrides)
+    cfg = jax_get_config(variant, **dict(TRAIN, **overrides))
     sample = {k: v for k, v in make_batch(cfg, 0).items() if k != "eps"}
     return jax.jit(lambda r, b: jax_create_train_state(cfg, r, b))(
         jax.random.PRNGKey(0), sample)
@@ -167,7 +167,7 @@ def numpy_tree(tree):
 
 def port_from_jax(variant, jax_state, jax_vgg, **overrides):
     """(cfg, state, vgg) of the port, with the JAX state's G, D and VGG."""
-    cfg = port_get_config(variant, **TRAIN, **overrides)
+    cfg = port_get_config(variant, **dict(TRAIN, **overrides))
     state = create_train_state(
         cfg,
         state_dict_from_jax(numpy_tree(jax_state.g_params),
@@ -247,7 +247,7 @@ def assert_train_steps_match(variant, jax_state, jax_vgg,
     running statistics and D's ``u`` after every step, and both Adams'
     first moments after the first (G's ``zero_gradient`` keys as noise,
     see ``assert_moments_close``)."""
-    jcfg = jax_get_config(variant, **TRAIN, **overrides)
+    jcfg = jax_get_config(variant, **dict(TRAIN, **overrides))
     jax_step = jax.jit(jax_build_train_step(jcfg))
     cfg, state, vgg = port_from_jax(variant, jax_state, jax_vgg, **overrides)
     step = build_train_step(cfg)

@@ -14,7 +14,9 @@ embedded on the host: the cached SBERT model, else ``hash_embed`` with a
 warning), unet, v2 and oldv; ``--set conditional_disc=1`` adds the
 projection-conditional discriminator head. ``--multi-step K`` runs K train
 steps (and K val batches) per call, on the card as CUDA-graph replays of
-one step. The JAX flag ``--loader device`` is not here.
+one step. ``--loader device`` decodes and crops on the host and warps on
+the card (``data/device_pipeline.py``); the default ``--loader host`` warps
+on the host's worker threads and takes ``--patch-cache``.
 
 Several processes (one per card, or on the CPU with ``--device cpu``)
 train as one run on the global batch ``--batch-size``: start the same
@@ -71,8 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-pixel noise")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--loader", choices=("host", "device"), default="host",
+                   help="on-disk data: 'host' decodes and warps on host "
+                        "worker threads (cv2 or the native warp; with "
+                        "--patch-cache later epochs stream from a memmap); "
+                        "'device' decodes and bucket-crops on the host and "
+                        "warps on the device (data/device_pipeline.py), "
+                        "EXPERIMENTAL")
     p.add_argument("--patch-cache", default=None, metavar="DIR",
-                   help="persistent decoded-patch cache dir: decode and "
+                   help="persistent decoded-patch cache dir (host loader "
+                        "only): decode and "
                         "warp each sample once, stream later epochs from a "
                         "memmap; prewarm with python -m "
                         "vae_gan_mark_tpu_torch.data.patch_cache")
@@ -155,7 +165,7 @@ def synthetic_sources(cfg, args, device):
     steps = args.synthetic_samples // bs
     val_steps = max(steps // 8, 1)
     est_bytes = train_ds.ru.nbytes + train_ds.en.nbytes + train_ds.mask.nbytes
-    several = mesh.process_count() > 1
+    several = mesh.data_count() > 1
     if args.device_data == "on" and several:
         raise SystemExit("--device-data on holds the whole set in one "
                          "process; a multi-process run loads each "
@@ -185,27 +195,43 @@ def synthetic_sources(cfg, args, device):
     return train_data, val_data
 
 
-def disk_sources(cfg, args):
+def disk_sources(cfg, args, device):
     """Train and val loaders over the on-disk dataset, split as the
     reference does (grouped by RU image, ``cfg.val_split``,
-    ``cfg.split_seed``). With several processes each loads a contiguous
+    ``cfg.split_seed``): ``HostWarpLoader``, or with ``--loader device``
+    ``DeviceWarpLoader`` warping on ``device``. With several data-parallel
+    processes each loads a contiguous
     shard of equal length of each split, in batches of its rows, and the
     trailing partial val batch is dropped, so that every process runs the
     same number of batches of the same shape (a process with one more
     would wait for the others' collectives forever)."""
     from vae_gan_mark_tpu_torch.data.index import build_index, grouped_split
-    from vae_gan_mark_tpu_torch.data.pipeline import HostWarpLoader
     from vae_gan_mark_tpu_torch.parallel import mesh
     if not all((args.json_dir, args.ru_dir, args.en_dir, args.mask_dir)):
         raise SystemExit("--json-dir/--ru-dir/--en-dir/--mask-dir are "
                          "required without --synthetic")
+    if args.loader == "device":
+        if args.patch_cache:
+            raise SystemExit("--patch-cache requires --loader host (the "
+                             "device loader warps on-chip)")
+        print("[warn] --loader device is experimental: the host decodes "
+              "and crops every sample each epoch and the device warps it; "
+              "--loader host --patch-cache DIR streams later epochs from a "
+              "memmap instead (chip_smoke.py phase 15 times both loaders)",
+              flush=True)
+        from vae_gan_mark_tpu_torch.data.device_pipeline import (
+            DeviceWarpLoader)
+        loader, extra = DeviceWarpLoader, dict(device=device)
+    else:
+        from vae_gan_mark_tpu_torch.data.pipeline import HostWarpLoader
+        loader, extra = HostWarpLoader, dict(cache_dir=args.patch_cache)
     samples = build_index(args.json_dir, args.ru_dir, args.en_dir,
                           args.mask_dir)
     print(f"indexed {len(samples)} samples")
     train_idx, val_idx = grouped_split(samples, cfg.val_split,
                                        cfg.split_seed)
     print(f"train/val: {len(train_idx)}/{len(val_idx)}")
-    n_proc, proc_id = mesh.process_count(), mesh.process_index()
+    n_proc, proc_id = mesh.data_count(), mesh.data_index()
     if n_proc > 1:
         # The split is the same on every process (same seed, same
         # listing); a decode failure gives a zero sample, not a dropped
@@ -219,13 +245,12 @@ def disk_sources(cfg, args):
         from vae_gan_mark_tpu_torch.data.text_embed import make_text_embedder
         text_embed_fn = make_text_embedder()
     common = dict(batch_size=cfg.batch_size // n_proc, seed=args.seed,
-                  num_workers=args.num_workers, cache_dir=args.patch_cache,
-                  text_embed_fn=text_embed_fn)
-    train_data = HostWarpLoader(cfg, samples, train_idx, shuffle=True,
-                                drop_last=True, **common)
-    val_data = HostWarpLoader(cfg, samples, val_idx, shuffle=False,
-                              drop_last=n_proc > 1, **common) \
-        if val_idx else None
+                  num_workers=args.num_workers, text_embed_fn=text_embed_fn,
+                  **extra)
+    train_data = loader(cfg, samples, train_idx, shuffle=True,
+                        drop_last=True, **common)
+    val_data = loader(cfg, samples, val_idx, shuffle=False,
+                      drop_last=n_proc > 1, **common) if val_idx else None
     return train_data, val_data
 
 
@@ -233,7 +258,7 @@ def main(argv=None):
     import torch
 
     from vae_gan_mark_tpu_torch.config import VariantConfig
-    from vae_gan_mark_tpu_torch.parallel import distributed
+    from vae_gan_mark_tpu_torch.parallel import distributed, mesh
     from vae_gan_mark_tpu_torch.train.loop import Trainer
     from vae_gan_mark_tpu_torch.utils.debug import enable_nan_debugging
 
@@ -260,16 +285,16 @@ def main(argv=None):
     if not args.no_mesh:
         device = distributed.initialize(args.coordinator, args.num_processes,
                                         args.process_id, device=device)
-    if cfg.batch_size % distributed.process_count():
+    if cfg.batch_size % mesh.data_count():
         raise SystemExit(f"--batch-size {cfg.batch_size} does not split "
-                         f"over {distributed.process_count()} processes")
+                         f"over {mesh.data_count()} processes")
     if args.debug_nans:
         enable_nan_debugging()
 
     if args.synthetic:
         train_data, val_data = synthetic_sources(cfg, args, device)
     else:
-        train_data, val_data = disk_sources(cfg, args)
+        train_data, val_data = disk_sources(cfg, args, device)
 
     trainer = Trainer(cfg, train_data, val_data, workdir=args.workdir,
                       seed=args.seed, device=device,

@@ -11,7 +11,9 @@ arrays {ru, en, mask: NHWC float32 in [0, 1], text, raw_text}; ``text``
 holds int32 char tokens, or for the sbert text path (B, sbert_dim) float32
 embeddings from ``text_embed_fn`` (``hash_embed`` without one). The
 trainer moves them to the card. ``cache_dir`` streams decoded patches
-from ``data/patch_cache.py`` after their first decode.
+from ``data/patch_cache.py`` after their first decode. ``PooledLoader``
+holds what it shares with the device loader (``data/device_pipeline.py``):
+the order, the batches, the texts and the decode pool.
 """
 
 from __future__ import annotations
@@ -94,18 +96,22 @@ def load_sample(sample: Sample, cfg: VariantConfig):
                 "")
 
 
-class HostWarpLoader:
-    """Data source (``epoch -> iterator of batches``) over a subset of the
-    index; with ``shuffle`` the order is a permutation drawn from
-    ``seed + epoch``. ``text_embed_fn``: texts -> (B, sbert_dim) for the
-    sbert text path (``data/text_embed.py:make_text_embedder``)."""
+class PooledLoader:
+    """What the loaders share: a data source (``epoch -> iterator of
+    batches``) over a subset of the index; with ``shuffle`` the order is a
+    permutation drawn from ``seed + epoch``, and ``drop_last`` drops a last
+    partial batch. Each sample goes through ``_load`` on a pool of
+    ``num_workers`` threads and each batch of them through ``_finish``;
+    the next batch's samples are submitted before a batch is finished, so
+    the pool decodes while ``_finish`` and the consumer run.
+    ``text_embed_fn``: texts -> (B, sbert_dim) for the sbert text path
+    (``data/text_embed.py:make_text_embedder``)."""
 
     def __init__(self, cfg: VariantConfig, samples: Sequence[Sample],
                  indices: Sequence[int], batch_size: Optional[int] = None,
                  shuffle: bool = True, drop_last: bool = True,
                  seed: int = 0, num_workers: int = 8,
-                 text_embed_fn: Optional[Callable] = None,
-                 cache_dir: Optional[str] = None):
+                 text_embed_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.samples = samples
         self.indices = list(indices)
@@ -116,11 +122,6 @@ class HostWarpLoader:
         self.num_workers = num_workers
         self.tokenizer = CharTokenizer(cfg.alphabet, cfg.max_text_len)
         self.text_embed_fn = text_embed_fn
-        self.cache = None
-        if cache_dir is not None:
-            from vae_gan_mark_tpu_torch.data.patch_cache import PatchCache
-            self.cache = PatchCache(cache_dir, cfg, samples,
-                                    text_embed_fn=text_embed_fn)
 
     def __len__(self):
         n = len(self.indices)
@@ -131,31 +132,75 @@ class HostWarpLoader:
         return encode_texts(self.cfg, self.tokenizer, self.text_embed_fn,
                             texts)
 
-    def __call__(self, epoch: int) -> Iterator[dict]:
+    def _batches(self, epoch: int) -> List[np.ndarray]:
+        """The epoch's batches of sample indices, in order."""
         order = np.asarray(self.indices)
         if self.shuffle:
             order = np.random.default_rng(
                 self.seed + epoch).permutation(order)
         b = self.batch_size
         limit = len(order) - (len(order) % b) if self.drop_last else len(order)
-        if self.cache is not None:
-            for start in range(0, limit, b):
-                yield self.cache.batch(order[start:start + b],
-                                       self.num_workers)
-            return
+        return [order[start:start + b] for start in range(0, limit, b)]
+
+    def _load(self, sample: Sample):
+        """One sample, on a worker thread."""
+        raise NotImplementedError
+
+    def _finish(self, loaded: list):
+        """The batch of a list of ``_load`` results."""
+        raise NotImplementedError
+
+    def __call__(self, epoch: int) -> Iterator[dict]:
+        batches = self._batches(epoch)
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            for start in range(0, limit, b):
-                chunk = order[start:start + b]
-                loaded = list(pool.map(
-                    lambda i: load_sample(self.samples[int(i)], self.cfg),
-                    chunk))
-                if not loaded:
-                    yield None
-                    continue
-                ru = np.stack([s[0] for s in loaded])
-                en = np.stack([s[1] for s in loaded])
-                mask = np.stack([s[2] for s in loaded])
-                texts = [s[3] for s in loaded]
-                yield {"ru": ru, "en": en, "mask": mask,
-                       "text": self._encode_text(texts),
-                       "raw_text": texts}
+            def submit(chunk):
+                return [pool.submit(self._load, self.samples[int(i)])
+                        for i in chunk]
+
+            pending = submit(batches[0]) if batches else []
+            for n in range(len(batches)):
+                loaded = [f.result() for f in pending]
+                if n + 1 < len(batches):
+                    pending = submit(batches[n + 1])
+                yield self._finish(loaded)
+
+
+class HostWarpLoader(PooledLoader):
+    """``PooledLoader`` that decodes and warps each sample on the host
+    (``load_sample``): batches of numpy arrays. ``cache_dir`` streams
+    decoded patches from ``data/patch_cache.py`` after their first
+    decode."""
+
+    def __init__(self, cfg: VariantConfig, samples: Sequence[Sample],
+                 indices: Sequence[int], batch_size: Optional[int] = None,
+                 shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, num_workers: int = 8,
+                 text_embed_fn: Optional[Callable] = None,
+                 cache_dir: Optional[str] = None):
+        super().__init__(cfg, samples, indices, batch_size, shuffle,
+                         drop_last, seed, num_workers, text_embed_fn)
+        self.cache = None
+        if cache_dir is not None:
+            from vae_gan_mark_tpu_torch.data.patch_cache import PatchCache
+            self.cache = PatchCache(cache_dir, cfg, samples,
+                                    text_embed_fn=text_embed_fn)
+
+    def _load(self, sample: Sample):
+        return load_sample(sample, self.cfg)
+
+    def _finish(self, loaded: list) -> Optional[dict]:
+        if not loaded:
+            return None
+        ru = np.stack([s[0] for s in loaded])
+        en = np.stack([s[1] for s in loaded])
+        mask = np.stack([s[2] for s in loaded])
+        texts = [s[3] for s in loaded]
+        return {"ru": ru, "en": en, "mask": mask,
+                "text": self._encode_text(texts), "raw_text": texts}
+
+    def __call__(self, epoch: int) -> Iterator[dict]:
+        if self.cache is None:
+            yield from super().__call__(epoch)
+            return
+        for chunk in self._batches(epoch):
+            yield self.cache.batch(chunk, self.num_workers)

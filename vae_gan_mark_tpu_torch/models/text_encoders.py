@@ -22,6 +22,8 @@ from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.pool import adaptive_avg_pool1d
 from vae_gan_mark_tpu_torch.ops.rnn import BiGRU
+from vae_gan_mark_tpu_torch.parallel.mesh import (
+    column_parallel, gather_at_use)
 
 
 class SbertProjector(nn.Module):
@@ -35,8 +37,8 @@ class SbertProjector(nn.Module):
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(emb.to(dt), self.fc.weight.to(dt),
-                        self.fc.bias.to(dt))
+        return column_parallel(lambda e, w, b: F.linear(e.to(dt), w.to(dt), b),
+                               emb, self.fc.weight, self.fc.bias.to(dt))
 
 
 class _CharEmbedGRU(nn.Module):
@@ -104,9 +106,11 @@ class CharTextEncoderPosEnc(_CharEmbedGRU):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
         y = self.embed_and_encode(tokens, generator)       # (B, L, 2H)
-        y = F.conv1d(y.transpose(1, 2).to(dt), self.conv1d.weight.to(dt),
-                     self.conv1d.bias.to(dt), padding=1)   # (B, 2H, L)
+        y = column_parallel(
+            lambda y, w, b: F.conv1d(y.to(dt), w.to(dt), b, padding=1),
+            y.transpose(1, 2), self.conv1d.weight,
+            self.conv1d.bias.to(dt))                       # (B, 2H, L)
         y = adaptive_avg_pool1d(y.transpose(1, 2), self.out_width)
         y = y.transpose(1, 2)[:, :, None, :]               # (B, 2H, 1, W_t)
         y = y.expand(-1, -1, self.out_height, -1)
-        return y + self.pos_enc.to(y.dtype)
+        return y + gather_at_use(self.pos_enc).to(y.dtype)

@@ -5,6 +5,10 @@ dtype where the JAX package's ``nn.Conv(dtype=...)`` does. The JAX
 ``LanePaddedConv`` pads a 64->3 conv's output channels to 8 TPU lanes with
 identical math, so here it is a plain ``Conv2d``.
 
+A conv whose weight ``parallel/mesh.py:partition_params`` has cut to this
+model rank's output channels computes them alone and gathers the rest
+(``mesh.column_parallel``).
+
 Blocks are ``nn.Sequential``s so that their state-dict keys follow the
 reference's ``[Conv, BN, ReLU, Conv, BN, ReLU]`` indices (``0.weight``,
 ``1.running_mean``, ``3.weight``, ...).
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.norms import BatchNorm
+from vae_gan_mark_tpu_torch.parallel.mesh import column_parallel
 
 _Pair = Union[int, Tuple[int, int]]
 
@@ -50,7 +55,9 @@ class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        return column_parallel(
+            lambda x, w, b: self._conv_forward(x.to(dt), w.to(dt), b), x,
+            self.weight, bias)
 
 
 class TConv(nn.ConvTranspose2d):
@@ -70,9 +77,10 @@ class TConv(nn.ConvTranspose2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt), self.stride,
-                                  self.padding)
+        return column_parallel(
+            lambda x, w, b: F.conv_transpose2d(
+                x.to(dt), w.to(dt), b, self.stride, self.padding), x,
+            self.weight, self.bias.to(dt))
 
 
 class ConvBNRelu(nn.Sequential):

@@ -44,6 +44,7 @@ from vae_gan_mark_tpu_torch.ops.constants import device_constant
 from vae_gan_mark_tpu_torch.ops.convblocks import Conv2d
 from vae_gan_mark_tpu_torch.ops.norms import BatchNorm
 from vae_gan_mark_tpu_torch.ops.resize import interpolate_bilinear
+from vae_gan_mark_tpu_torch.parallel.mesh import column_parallel
 
 
 def spatial_broadcast(emb: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -124,14 +125,17 @@ class SpatialFiLM(nn.Module):
         """Row-factored predictor for y-constant upsampled text maps."""
         conv3, bn, relu, conv1 = self.param_predictor
         t_x = interpolate_bilinear(text_map, 1, w).to(self.dtype)
-        k = conv3.weight                                    # (Ct, Ct, 3, 3)
-        row_kernels = (k[:, :, 1] + k[:, :, 2],             # top
-                       k[:, :, 0] + k[:, :, 1] + k[:, :, 2],  # interior
-                       k[:, :, 0] + k[:, :, 1])             # bottom
-        rows = [F.conv2d(t_x, kr[:, :, None, :].to(self.dtype),
-                         padding=(0, 1)) for kr in row_kernels]
-        t_rows = bn(torch.cat(rows, dim=2),                 # (B, Ct, 3, W)
-                    row_weights=(1.0, float(h - 2), 1.0))
+
+        def row_convs(t_x, k, _):                           # (Ct, Ct, 3, 3)
+            row_kernels = (k[:, :, 1] + k[:, :, 2],         # top
+                           k[:, :, 0] + k[:, :, 1] + k[:, :, 2],  # interior
+                           k[:, :, 0] + k[:, :, 1])         # bottom
+            return torch.cat([F.conv2d(t_x, kr[:, :, None, :].to(self.dtype),
+                                       padding=(0, 1))
+                              for kr in row_kernels], dim=2)
+
+        t_rows = bn(column_parallel(row_convs, t_x, conv3.weight),
+                    row_weights=(1.0, float(h - 2), 1.0))   # (B, Ct, 3, W)
         t_rows = relu(t_rows)
         return conv1(t_rows)
 
@@ -139,14 +143,18 @@ class SpatialFiLM(nn.Module):
                     w: int) -> torch.Tensor:
         """conv3x3(bilinear_upsample(text_map) to (h, w)) from the text
         map's h_t rows: (B, Ct, h, w) in the compute dtype."""
-        k = self.param_predictor[0].weight                  # (Ct, Ct, 3, 3)
         h_t = text_map.shape[2]
         t_x = interpolate_bilinear(text_map, h_t, w).to(self.dtype)
-        # One 3-tap conv along x per kernel row, the h_t rows of each
-        # stacked: (B, Ct, 3 h_t, w).
-        strips = torch.cat([
-            F.conv2d(t_x, k[:, :, ki:ki + 1].to(self.dtype), padding=(0, 1))
-            for ki in range(3)], dim=2).float()
+
+        def strip_convs(t_x, k, _):                         # (Ct, Ct, 3, 3)
+            # One 3-tap conv along x per kernel row, the h_t rows of each
+            # stacked: (B, Ct, 3 h_t, w).
+            return torch.cat([
+                F.conv2d(t_x, k[:, :, ki:ki + 1].to(self.dtype),
+                         padding=(0, 1)) for ki in range(3)], dim=2)
+
+        strips = column_parallel(strip_convs, t_x,
+                                 self.param_predictor[0].weight).float()
         mix = device_constant(("strip_mix", h_t, h), text_map.device,
                               lambda: strip_mix_matrix(h_t, h))
         return torch.matmul(mix, strips).to(self.dtype)     # (B, Ct, h, w)

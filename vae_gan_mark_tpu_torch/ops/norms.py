@@ -13,7 +13,7 @@ the JAX package implements them (``ops/norms.py``).
   move once per step, as under flax's ``nn.remat``. In a process group
   (``parallel/mesh.py``) the statistics are the global batch's, as under
   the JAX package's data mesh: each process's mean and biased variance
-  are combined over the processes by a differentiable all-reduce, so the
+  are combined over the data group by a differentiable all-reduce, so the
   gradient of the statistics crosses processes, and the running
   variance's n / (n - 1) takes the global count.
 * ``InstanceNorm``: ``InstanceNorm2d(affine=True)``, per sample and channel
@@ -107,13 +107,13 @@ def _batch_stats(xf: torch.Tensor, row_weights: Optional[Sequence[float]]
 
 def _global_stats(mean: torch.Tensor, var: torch.Tensor, n: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Every process's (mean, biased variance) over its n rows combined
-    into the global batch's: with P processes of n rows each, the mean of
+    """Every data index's (mean, biased variance) over its n rows combined
+    into the global batch's: with P data indices of n rows each, the mean of
     the means, and the mean of var_p + (mean_p - mean)^2. A group of one
     returns its own statistics bit for bit (sums of one term, divisions by
     one, a zero square), so one process computes the same with a group as
     without one."""
-    world = mesh.process_count()
+    world = mesh.data_count()
     g_mean = mesh.all_reduce_sum(mean) / world
     g_var = mesh.all_reduce_sum(var + (mean - g_mean).square()) / world
     return g_mean, g_var, n * world

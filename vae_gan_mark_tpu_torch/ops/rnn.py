@@ -9,6 +9,9 @@ plain versions for a CPU tensor. The reverse direction runs right to left
 and returns outputs in input order. A BiGRU layer runs both directions
 through one function, whose forward and backward are each one kernel launch
 for the pair.
+A weight that ``parallel/mesh.py:partition_params`` has cut to this model
+rank's block is gathered whole before the projection and the kernels
+(``mesh.gather_at_use``).
 Parameters carry ``nn.GRU``'s names (``weight_ih_l0``, ``bias_hh_l1_reverse``
 ...), so a reference ``state_dict`` loads as it is.
 """
@@ -23,7 +26,7 @@ from torch import nn
 
 from vae_gan_mark_tpu_torch.ops.gru import (bigru_recurrence_grad,
                                             gru_recurrence_grad)
-from vae_gan_mark_tpu_torch.parallel.mesh import global_rows
+from vae_gan_mark_tpu_torch.parallel.mesh import gather_at_use, global_rows
 
 
 def input_projection(x_tm: torch.Tensor, w_ih: torch.Tensor,
@@ -66,9 +69,9 @@ class GRULayer(nn.Module):
         _gru_params(self, "l0", in_dim, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = gru_layer(x.transpose(0, 1), self.weight_ih_l0,
-                        self.bias_ih_l0, self.weight_hh_l0, self.bias_hh_l0,
-                        self.reverse)
+        out = gru_layer(x.transpose(0, 1), gather_at_use(self.weight_ih_l0),
+                        self.bias_ih_l0, gather_at_use(self.weight_hh_l0),
+                        self.bias_hh_l0, self.reverse)
         return out.transpose(0, 1).to(x.dtype)
 
 
@@ -92,9 +95,10 @@ class BiGRU(nn.Module):
 
     def _direction(self, y: torch.Tensor, suffix: str):
         """(x_proj, W_hh, b_hh) of one direction of a layer."""
-        return (input_projection(y, getattr(self, f"weight_ih_{suffix}"),
-                                 getattr(self, f"bias_ih_{suffix}")),
-                getattr(self, f"weight_hh_{suffix}"),
+        return (input_projection(
+                    y, gather_at_use(getattr(self, f"weight_ih_{suffix}")),
+                    getattr(self, f"bias_ih_{suffix}")),
+                gather_at_use(getattr(self, f"weight_hh_{suffix}")),
                 getattr(self, f"bias_hh_{suffix}"))
 
     def forward(self, x: torch.Tensor,

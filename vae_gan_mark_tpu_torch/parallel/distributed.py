@@ -5,7 +5,8 @@ One process per card. ``initialize`` joins the processes into a
 ``jax.distributed.initialize`` joins them into one runtime; the train step
 then computes global-batch means (``parallel/mesh.py``), so an N-process
 run equals one process with the same global batch. Each process loads only
-its rows (``process_local_slice``).
+its rows (``process_local_slice``); the model ranks of one data index
+(``mesh.make_mesh(model_parallel)``) load the same rows.
 
 The backend is NCCL for processes on the card and gloo on the CPU (gloo
 also takes CUDA tensors, through the host: two processes on one card
@@ -25,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 from vae_gan_mark_tpu_torch.parallel.mesh import (
-    active, local_rows, process_count, process_index)
+    active, local_rows, process_count, process_index, reset_mesh)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -84,14 +85,16 @@ def initialize(coordinator_address: Optional[str] = None,
 
 
 def shutdown() -> None:
-    """Leave the process group, if this process is in one."""
+    """Leave the process group, if this process is in one, and forget its
+    mesh."""
+    reset_mesh()
     if active():
         dist.destroy_process_group()
 
 
 def process_local_slice(global_batch_size: int) -> slice:
     """The rows of the global batch this process loads: contiguous equal
-    blocks in rank order."""
+    blocks in data-index order (``parallel/mesh.py:local_rows``)."""
     return local_rows(global_batch_size)
 
 

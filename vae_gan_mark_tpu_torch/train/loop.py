@@ -165,9 +165,13 @@ class Trainer:
         self.val_data = val_data
         self.workdir = workdir
         self.seed = seed
-        self.processes = mesh.process_count()
+        self.processes = mesh.data_count()
         self.is_main = mesh.process_index() == 0
         self.multi_step = max(int(multi_step), 1)
+        if mesh.model_count() > 1:
+            raise ValueError("the epoch driver trains on the data axis "
+                             "alone, as the JAX package's does; its "
+                             "checkpoints hold whole parameters")
         if mesh.active() and self.multi_step > 1:
             raise ValueError("multi_step > 1 runs in one process without a "
                              "process group, as the JAX package's multi "

@@ -36,6 +36,7 @@ import torch
 from vae_gan_mark_tpu_torch.config import VariantConfig
 from vae_gan_mark_tpu_torch.models.discriminator import PatchDiscriminator
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
+from vae_gan_mark_tpu_torch.parallel import mesh
 from vae_gan_mark_tpu_torch.utils.port_jax import (  # noqa: F401
     disc_cond_args, init_state_dicts, init_vgg_state_dict,
     vgg_state_dict_from_jax)
@@ -80,10 +81,20 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
     """optax's ``clip_by_global_norm``: every gradient times
     ``max_norm / ||g||`` when the global norm ``||g|| >= max_norm``, else
     unchanged. (``torch.nn.utils.clip_grad_norm_`` scales by
-    ``max_norm / (||g|| + 1e-6)``, another function.) Returns ``||g||``."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    ``max_norm / (||g|| + 1e-6)``, another function.) Returns ``||g||``.
+    A partitioned parameter (``parallel/mesh.py:partition_params``) holds
+    a block of its gradient: its norm is summed over the model group, so
+    every rank clips by the norm of the whole gradient."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    sharded = [i for i, p in enumerate(params)
+               if mesh.sharded_dim(p) is not None]
+    if sharded:
+        index = torch.tensor(sharded, device=norms.device)
+        squares = mesh.model_sum_(norms[index].square())
+        norms = norms.index_copy(0, index, squares.sqrt())
+    norm = torch.linalg.vector_norm(norms)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:

@@ -47,10 +47,15 @@ package runs its float32 work (D, the GRU, their gradients) at HIGH or
 HIGHEST precision; so TF32 stays off for the whole step, backward included.
 BatchNorm statistics, the KL term and the losses are float32.
 
-In a process group (``parallel/``, one process per card, each with its
-rows of the global batch) each network's gradients are averaged over the
-processes, with one all-reduce, before clipping and its Adam step, and the
-metrics of both steps leave them as their mean over the processes; with
+In a process group (``parallel/``, one process per card, each data index
+with its rows of the global batch) each network's gradients are averaged
+over the data indices, with one all-reduce, before clipping and its Adam
+step, and the metrics of both steps leave them as their mean over the data
+group; with a generator partitioned over the model axis
+(``mesh.partition_params``) the whole parameters' gradients are averaged
+over every process and the blocks' over their data group (a second
+all-reduce), and the clip's norm sums the blocks' norms over the model
+group (``train/state.py:clip_by_global_norm_``); with
 BatchNorm's statistics, the noise and the dropout masks taken over the
 global batch (``parallel/mesh.py``), N processes compute the step of one
 process on the global batch. The multi steps refuse a process group: their

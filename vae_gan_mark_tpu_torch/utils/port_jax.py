@@ -23,9 +23,10 @@ Layout changes:
   ``pos_enc`` (1, h, w, C) -> (1, C, h, w), a gated skip's ``alpha`` (C,)
   -> (1, C, 1, 1).
 
-One table per network (``_entries``, ``_disc_entries``, ``_vgg_entries``)
-lists every leaf with its JAX path, its port key, its layout change and its
-JAX shape; the bridge and the seeded random init both read it. Covers every
+One table per network (``generator_entries``, ``_disc_entries``,
+``_vgg_entries``) lists every leaf with its JAX path, its port key, its
+layout change and its JAX shape; the bridge, the seeded random init and
+the tensor-parallel partition read it. Covers every
 generator: the plain one with the sbert projection (vanilla, lr_sh; the
 JAX package's ``port_vanilla_generator`` is its inverse), the
 char-conditioned U-Nets (v2 with FiLM, unet without, oldv with gated skips
@@ -225,8 +226,9 @@ def _unet_decoder(cfg: VariantConfig, sp: str):
                 f"{sp}.final_image_conv.bias", "plain", (cfg.out_ch,))
 
 
-def _entries(cfg: VariantConfig) -> Iterator[Entry]:
-    """The generator's leaves: the encoder by ``cfg.generator``, the text
+def generator_entries(cfg: VariantConfig) -> Iterator[Entry]:
+    """The generator's leaves (``parallel/mesh.py:partition_params`` reads
+    their JAX shapes): the encoder by ``cfg.generator``, the text
     path and the decoder by ``cfg.text_encoder``, as the JAX package's
     ``VAEGANGenerator`` chooses them."""
     enc, text, dec = module_names(cfg)
@@ -442,7 +444,7 @@ def random_jax_tree(cfg: VariantConfig, seed: int) -> Tuple[Tree, Tree]:
     """Seeded random (params, batch_stats) numpy trees in the JAX
     generator's layout: He-normal conv kernels, torch's GRU init, BN
     variances in [0.5, 2]."""
-    trees = _random_trees(_entries(cfg), seed)
+    trees = _random_trees(generator_entries(cfg), seed)
     return trees["params"], trees["batch_stats"]
 
 
@@ -470,7 +472,8 @@ def init_state_dicts(cfg: VariantConfig, seed: int
     distributions of the JAX modules' initializers (``_init_leaf``). The
     values differ from a flax init's; the distributions are the same."""
     rng = np.random.default_rng(seed)
-    g_entries, d_entries = list(_entries(cfg)), list(_disc_entries(cfg))
+    g_entries = list(generator_entries(cfg))
+    d_entries = list(_disc_entries(cfg))
     g = _random_trees(g_entries, int(rng.integers(2 ** 63)), _init_leaf)
     d = _random_trees(d_entries, int(rng.integers(2 ** 63)), _init_leaf)
     return _state_dict(g_entries, g), _state_dict(d_entries, d)
@@ -486,8 +489,8 @@ def init_vgg_state_dict(seed: int) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(params: Tree, batch_stats: Tree,
                         cfg: VariantConfig) -> Dict[str, torch.Tensor]:
     """JAX generator trees (numpy leaves) -> the port's ``state_dict``."""
-    return _state_dict(_entries(cfg), {"params": params,
-                                       "batch_stats": batch_stats})
+    return _state_dict(generator_entries(cfg),
+                       {"params": params, "batch_stats": batch_stats})
 
 
 def discriminator_state_dict_from_jax(
