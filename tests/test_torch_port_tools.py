@@ -24,7 +24,8 @@ from vae_gan_mark_tpu_torch.utils.debug import enable_nan_debugging
 from vae_gan_mark_tpu_torch.utils.port_jax import (
     discriminator_state_dict_from_jax, random_discriminator_tree,
     random_jax_tree, state_dict_from_jax)
-from vae_gan_mark_tpu_torch.utils.profiling import StepTimer, trace
+from vae_gan_mark_tpu_torch.utils.profiling import (
+    NO_SPAN, count, span, trace)
 
 from torch_port_common import TINY, Pair
 
@@ -84,22 +85,25 @@ def test_unresponsive_probe_times_out(monkeypatch):
 
 
 def test_step_timer_and_trace_on_the_cpu(tmp_path):
-    calls = []
-
-    def step():
-        calls.append(1)
-        time.sleep(0.01)
-
-    seconds = StepTimer(warmup=2, device="cpu").measure(step, steps=5)
-    assert len(calls) == 7 and 0.009 <= seconds < 0.5
-    if not torch.cuda.is_available():
-        with pytest.raises((RuntimeError, AssertionError)):
-            StepTimer().measure(step, steps=1)     # the card by default
+    """``trace`` writes the profiler's Chrome trace and, beside it, the
+    block's spans and counters (``StepTimer`` is gone: nothing read it)."""
     with trace(str(tmp_path), "probe", "cpu") as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("probe.outer", rows=2):
+            with span("probe.inner"):
+                time.sleep(0.001)
+                torch.ones(64, 64) @ torch.ones(64, 64)
+        count("probe.count", 3)
     assert any("mm" in e.key for e in prof.key_averages())
     events = json.loads((tmp_path / "probe.trace.json").read_text())
     assert events["traceEvents"]
+    spans = json.loads((tmp_path / "probe.spans.json").read_text())
+    assert spans["counters"] == {"probe.count": 3}
+    inner, outer = spans["spans"]
+    assert (inner["name"], outer["name"]) == ("probe.inner", "probe.outer")
+    assert inner["parent"] == outer["id"] == inner["root"]
+    assert outer["attrs"] == {"rows": 2}
+    assert outer["start"] <= inner["start"] < inner["end"] <= outer["end"]
+    assert span("probe.after") is NO_SPAN          # off after the block
 
 
 def test_nan_debugging_and_device_report():

@@ -87,7 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "memmap; prewarm with python -m "
                         "vae_gan_mark_tpu_torch.data.patch_cache")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of epoch 2 here")
+                   help="write a torch.profiler trace of epoch 2 here, "
+                        "with the program's spans and counters beside it "
+                        "(epoch2.spans.json)")
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly(True): find the "
                         "op that made a NaN (slow)")

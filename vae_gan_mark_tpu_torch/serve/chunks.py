@@ -8,6 +8,11 @@ the output. The noise of the chunk that starts at request row ``start`` is
 drawn on the CPU from a ``torch.Generator`` seeded from ``(seed, start)``
 (the counterpart of the JAX package's ``fold_in(rng, start)``), so one seed
 gives the same noise on every device.
+
+Each chunk's ``encode`` and padding run in a ``serve.encode`` span and its
+noise in a ``serve.noise`` span (``utils/profiling.py``); the counters
+``serve.rows_requested`` and ``serve.rows_computed`` add up the rows asked
+for and the rows the generator runs, padding included.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+
+from vae_gan_mark_tpu_torch.utils.profiling import count, span
 
 
 def chunk_seed(seed: int, start: int) -> int:
@@ -53,13 +60,18 @@ def generate_in_chunks(run: Callable, encode: Callable[[list], np.ndarray],
     if n == 0:
         return np.zeros((0,) + tuple(ru.shape[1:3]) + (3,), np.float32)
     texts = list(texts)
+    count("serve.rows_requested", n)
     outs = []
     for start in range(0, n, batch_size):
         end = min(start + batch_size, n)
         m = end - start
-        text = encode(texts[start:end] + [""] * (batch_size - m))
-        out = run(pad_rows(ru[start:end], batch_size),
-                  pad_rows(mask[start:end], batch_size), text,
-                  chunk_noise(seed, start, batch_size, z_ch))
+        with span("serve.encode"):
+            text = encode(texts[start:end] + [""] * (batch_size - m))
+            ru_c = pad_rows(ru[start:end], batch_size)
+            mask_c = pad_rows(mask[start:end], batch_size)
+        with span("serve.noise"):
+            eps = chunk_noise(seed, start, batch_size, z_ch)
+        count("serve.rows_computed", batch_size)
+        out = run(ru_c, mask_c, text, eps)
         outs.append(out[:m])
     return np.concatenate(outs, axis=0)

@@ -9,6 +9,11 @@ reparameterisation noise of the chunk that starts at request row ``start``
 comes from a CPU ``torch.Generator`` seeded from ``(seed, start)`` and is
 then moved to the device, so one seed gives the same noise on every device.
 
+A call of ``generate`` is a ``serve.request`` span (``utils/profiling.py``);
+inside it each chunk's copies to the device, the generator's forward and
+the copy back are the spans ``serve.copy_in``, ``serve.forward`` and
+``serve.copy_out``, beside ``serve/chunks.py``'s.
+
 ``InferenceEngine.from_checkpoint`` serves the generator of a trainer's
 checkpoint (``train/checkpoint.py``); ``python -m vae_gan_mark_tpu_torch.serve``
 renders one image with it.
@@ -30,6 +35,7 @@ from vae_gan_mark_tpu_torch.ops.warp import (
     perspective_crop_batch, perspective_unwarp)
 from vae_gan_mark_tpu_torch.serve.chunks import (  # noqa: F401 (chunk_seed)
     chunk_noise, chunk_seed, generate_in_chunks)
+from vae_gan_mark_tpu_torch.utils.profiling import span
 
 
 class InferenceEngine:
@@ -101,17 +107,21 @@ class InferenceEngine:
                  texts: Sequence[str]) -> np.ndarray:
         """ru (N, H, W, 3), mask (N, H, W, 1) float in [0, 1]; returns the
         (N, H, W, 3) float32 patches."""
-        return generate_in_chunks(self._run_chunk, self._encode_texts, ru,
-                                  mask, texts, self.batch_size, self.seed,
-                                  self.cfg.z_ch)
+        with span("serve.request", rows=int(ru.shape[0])):
+            return generate_in_chunks(self._run_chunk, self._encode_texts,
+                                      ru, mask, texts, self.batch_size,
+                                      self.seed, self.cfg.z_ch)
 
     def _run_chunk(self, ru: np.ndarray, mask: np.ndarray, text: np.ndarray,
                    eps: torch.Tensor) -> np.ndarray:
-        recon, _, _ = self.model(
-            self._to_device(ru), self._to_device(mask),
-            as_batch_tensor("text", self._to_device(text)),
-            eps=eps.to(self.device))
-        return recon.cpu().numpy()
+        with span("serve.copy_in"):
+            ru_t, mask_t = self._to_device(ru), self._to_device(mask)
+            text_t = as_batch_tensor("text", self._to_device(text))
+            eps_t = eps.to(self.device)
+        with span("serve.forward"):
+            recon, _, _ = self.model(ru_t, mask_t, text_t, eps=eps_t)
+        with span("serve.copy_out"):
+            return recon.cpu().numpy()
 
     @torch.no_grad()
     def render(self, image: np.ndarray, mask_image: np.ndarray,

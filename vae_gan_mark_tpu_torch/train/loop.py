@@ -50,6 +50,16 @@ weights from ``tools/vgg16_features.npz`` when present, else a fixed-seed
 random head; the JAX package's random head comes from ``PRNGKey(16)``,
 which torch cannot reproduce, so without the file the perceptual loss
 differs from the JAX package's).
+
+Spans (``utils/profiling.py``): ``train.epoch`` over ``train_epoch`` and
+``train.validate`` over ``validate`` (each the root of its call's spans),
+``train.step`` and ``train.eval_step`` over each step the host issues
+(``kind``: ``eager``, ``capture`` or ``replay``), ``train.prefetch_wait``
+over each wait for a prefetched batch, ``train.epoch_read`` over the
+epoch's one read of the device sums, and ``train.val_read`` over
+validation's reads and its image log. The counters ``train.steps_eager``,
+``train.steps_replayed`` and ``train.graph_captures`` count train and eval
+steps alike.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from vae_gan_mark_tpu_torch.train.state import (
 from vae_gan_mark_tpu_torch.train.step import (
     build_eval_step, build_multi_eval_step, build_multi_train_step,
     build_train_step, make_generator)
-from vae_gan_mark_tpu_torch.utils.profiling import trace
+from vae_gan_mark_tpu_torch.utils.profiling import count, span, trace
 
 DataSource = Callable[[int], Iterator[dict]]
 StateDict = Mapping[str, torch.Tensor]
@@ -133,7 +143,8 @@ def prefetch_to_device(iterator: Iterator[dict], put, size: int = 2):
     threading.Thread(target=worker, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("train.prefetch_wait"):
+                item = q.get()
             if item is sentinel:
                 return
             if isinstance(item, BaseException):
@@ -256,16 +267,18 @@ class Trainer:
         kl_w = float32_value(kl_weight_for_epoch(self.cfg, epoch))
         # Metric sums stay on the device and are read once an epoch.
         t0 = time.time()
-        if self.multi_step > 1:
-            sums, count, images = self._train_epoch_multi(epoch, kl_w)
-        else:
-            sums, count, images = None, 0, 0
-            for batch in prefetch_to_device(self.train_data(epoch),
-                                            self._put):
-                sums = self._single_train_step(batch, kl_w, sums)
-                images += batch["ru"].shape[0]
-                count += 1
-        avg = self._host_means(sums, count)
+        with span("train.epoch", epoch=epoch):
+            if self.multi_step > 1:
+                sums, steps, images = self._train_epoch_multi(epoch, kl_w)
+            else:
+                sums, steps, images = None, 0, 0
+                for batch in prefetch_to_device(self.train_data(epoch),
+                                                self._put):
+                    sums = self._single_train_step(batch, kl_w, sums)
+                    images += batch["ru"].shape[0]
+                    steps += 1
+            with span("train.epoch_read"):
+                avg = self._host_means(sums, steps)
         images *= self.processes             # each process ran its rows
         dt = time.time() - t0
         if self.nan_guard and avg and not np.isfinite(avg["loss_G"]):
@@ -278,9 +291,11 @@ class Trainer:
 
     def _single_train_step(self, batch: dict, kl_w: float,
                            sums: Optional[dict]) -> dict:
-        gen = make_generator(self.device, self.seed, self.state.step)
-        self.state, metrics = self.train_step(self.state, self.vgg, batch,
-                                              gen, kl_w)
+        with span("train.step", kind="eager"):
+            count("train.steps_eager")
+            gen = make_generator(self.device, self.seed, self.state.step)
+            self.state, metrics = self.train_step(self.state, self.vgg,
+                                                  batch, gen, kl_w)
         return metrics if sums is None else {
             k: sums[k] + metrics[k] for k in sums}
 
@@ -301,7 +316,7 @@ class Trainer:
             if group:
                 yield group
 
-        sums, count, images = None, 0, 0
+        sums, steps, images = None, 0, 0
         for group in prefetch_to_device(
                 grouped(), lambda g: [self._put(b) for b in g]):
             if len(group) == k:
@@ -310,9 +325,9 @@ class Trainer:
             else:
                 for batch in group:
                     sums = self._single_train_step(batch, kl_w, sums)
-            count += len(group)
+            steps += len(group)
             images += sum(b["ru"].shape[0] for b in group)
-        return sums, count, images
+        return sums, steps, images
 
     def _caption(self, host_batch: dict, i: int, epoch: int) -> str:
         # The caption carries the target text, cut at 50 characters, as
@@ -328,33 +343,42 @@ class Trainer:
         if self.val_data is None:
             return {}
         kl_w = float32_value(kl_weight_for_epoch(self.cfg, epoch))
-        if self.multi_step > 1:
-            return self._validate_multi(epoch, kl_w)
+        with span("train.validate", epoch=epoch):
+            if self.multi_step > 1:
+                return self._validate_multi(epoch, kl_w)
+            return self._validate_single(epoch, kl_w)
+
+    def _eager_eval_step(self, batch: dict, idx: int, kl_w: float):
+        with span("train.eval_step", kind="eager"):
+            count("train.steps_eager")
+            return self.eval_step(self.state, self.vgg, batch, make_generator(
+                self.device, self.seed, idx, self.state.step), kl_w)
+
+    def _validate_single(self, epoch: int, kl_w: float) -> dict:
         sums, n_samples = None, 0
         triplets = []
         for batch_idx, host_batch in enumerate(self.val_data(epoch)):
             if host_batch is None:
                 continue
             batch = self._put(host_batch)
-            gen = make_generator(self.device, self.seed, batch_idx,
-                                 self.state.step)
-            metrics, fake = self.eval_step(self.state, self.vgg, batch, gen,
-                                           kl_w)
+            metrics, fake = self._eager_eval_step(batch, batch_idx, kl_w)
             bsz = batch["ru"].shape[0]
             n_samples += bsz
             weighted = {k: v * bsz for k, v in metrics.items()}
             sums = weighted if sums is None else {
                 k: sums[k] + weighted[k] for k in sums}
             if len(triplets) < 16 and self.is_main:
-                fake_np = fake.cpu().numpy()
+                with span("train.val_read"):
+                    fake_np = fake.cpu().numpy()
                 for i in range(min(bsz, 16 - len(triplets))):
                     triplets.append((to_numpy(host_batch["ru"][i]),
                                      to_numpy(host_batch["en"][i]),
                                      fake_np[i],
                                      self._caption(host_batch, i, epoch)))
-        avg = self._host_means(sums, n_samples)
-        if triplets:
-            self.logger.log_images(triplets, step=epoch + 1)
+        with span("train.val_read"):
+            avg = self._host_means(sums, n_samples)
+            if triplets:
+                self.logger.log_images(triplets, step=epoch + 1)
         return avg
 
     def _validate_multi(self, epoch: int, kl_w: float) -> dict:
@@ -380,10 +404,7 @@ class Trainer:
             else:
                 per_batch, fake = [], None
                 for batch, idx in zip(batches, idxs):
-                    metrics, f = self.eval_step(
-                        self.state, self.vgg, batch, make_generator(
-                            self.device, self.seed, idx, self.state.step),
-                        kl_w)
+                    metrics, f = self._eager_eval_step(batch, idx, kl_w)
                     per_batch.append(metrics)
                     fake = f if fake is None else fake
             for batch, metrics in zip(batches, per_batch):
@@ -393,7 +414,8 @@ class Trainer:
                 sums = weighted if sums is None else {
                     key: sums[key] + weighted[key] for key in sums}
             if start == 0:
-                fake0, first_host = fake.cpu().numpy(), group[0]
+                with span("train.val_read"):
+                    fake0, first_host = fake.cpu().numpy(), group[0]
 
         for host_batch in self.val_data(epoch):
             if host_batch is None:
@@ -406,13 +428,14 @@ class Trainer:
         if group:
             flush(group, start)
 
-        avg = self._host_means(sums, n_samples)
-        if fake0 is not None:
-            triplets = [(to_numpy(first_host["ru"][i]),
-                         to_numpy(first_host["en"][i]), fake0[i],
-                         self._caption(first_host, i, epoch))
-                        for i in range(min(fake0.shape[0], 16))]
-            self.logger.log_images(triplets, step=epoch + 1)
+        with span("train.val_read"):
+            avg = self._host_means(sums, n_samples)
+            if fake0 is not None:
+                triplets = [(to_numpy(first_host["ru"][i]),
+                             to_numpy(first_host["en"][i]), fake0[i],
+                             self._caption(first_host, i, epoch))
+                            for i in range(min(fake0.shape[0], 16))]
+                self.logger.log_images(triplets, step=epoch + 1)
         return avg
 
     # ------------------------------------------------------------------

@@ -40,6 +40,10 @@ for training, both Adams' state present; until then, and for a batch that
 does not fit the graph, the steps run eagerly. On the CPU they always run
 eagerly. ``kl_weight`` may be a float or a 0-d float32 tensor: the step
 multiplies by it either way, with the same result for a float32 value.
+Each of their steps is a ``train.step`` or ``train.eval_step`` span whose
+``kind`` says which of these it was (``utils/profiling.py``), and adds to
+``train.steps_eager`` or ``train.steps_replayed``; a capture adds to
+``train.graph_captures``.
 
 Precision: G's convolutions run in the compute dtype. The discriminator
 computes in float32 in both modes, as the JAX package's does, and the JAX
@@ -92,6 +96,7 @@ from vae_gan_mark_tpu_torch.train.graphs import (
     CapturedStep, is_warm, mark_warm)
 from vae_gan_mark_tpu_torch.train.state import (
     TrainState, clip_by_global_norm_)
+from vae_gan_mark_tpu_torch.utils.profiling import count, span
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
@@ -249,16 +254,18 @@ class _Replay:
         self.owner: Tuple = ()
 
     def get(self, state: TrainState, vgg: VGG16Features, batch: Batch,
-            capture) -> Optional[CapturedStep]:
-        """The graph for this call, captured now with ``capture`` if the
-        step is warm (and, for training, Adam's state is there); None when
-        the call runs eagerly."""
+            capture) -> Tuple[Optional[CapturedStep], str]:
+        """(the graph for this call, captured now with ``capture`` if the
+        step is warm (and, for training, Adam's state is there), or None
+        when the call runs eagerly; the call's kind: ``eager``, ``capture``
+        or ``replay``)."""
         if batch["ru"].device.type != "cuda":
-            return None
+            return None, "eager"
+        kind = "replay"
         if self.graph is None:
             if not is_warm(self.kind, batch) or (
                     self.kind == "train" and not _adam_ready(state)):
-                return None
+                return None, "eager"
             rows = batch["ru"].shape[0]
             if self.hidden is not None:
                 gru.KERNEL.prepare(rows, self.hidden)
@@ -266,11 +273,15 @@ class _Replay:
                     gru.BACKWARD_KERNEL.prepare(rows, self.hidden)
             self.graph = CapturedStep(capture, batch)
             self.owner = (state, vgg)
+            count("train.graph_captures")
+            kind = "capture"
         if self.owner[0] is not state or self.owner[1] is not vgg:
             raise ValueError("this multi step's graph was captured for "
                              "another train state; build a new multi step "
                              "for this one")
-        return self.graph if self.graph.fits(batch) else None
+        if not self.graph.fits(batch):
+            return None, "eager"
+        return self.graph, kind
 
 
 def build_multi_train_step(cfg: VariantConfig):
@@ -296,20 +307,25 @@ def build_multi_train_step(cfg: VariantConfig):
             return metrics
 
         for batch in batches:
-            graph = replay.get(state, vgg, batch, capture)
-            if graph is not None:
-                metrics = graph.replay(batch, derive_seed(seed, state.step),
-                                       kl_weight)
-                state.step += 1
-            else:
-                device = batch["ru"].device
-                state, metrics = single(state, vgg, batch, make_generator(
-                    device, seed, state.step), kl_weight)
-                if device.type == "cuda":
-                    mark_warm("train", batch)
-            # A replay's outputs are overwritten by the next replay.
-            sums = ({k: v.clone() for k, v in metrics.items()} if sums is None
-                    else {k: sums[k] + metrics[k] for k in sums})
+            with span("train.step") as sp:
+                graph, kind = replay.get(state, vgg, batch, capture)
+                sp.set(kind=kind)
+                if graph is not None:
+                    count("train.steps_replayed")
+                    metrics = graph.replay(
+                        batch, derive_seed(seed, state.step), kl_weight)
+                    state.step += 1
+                else:
+                    count("train.steps_eager")
+                    device = batch["ru"].device
+                    state, metrics = single(state, vgg, batch, make_generator(
+                        device, seed, state.step), kl_weight)
+                    if device.type == "cuda":
+                        mark_warm("train", batch)
+                # A replay's outputs are overwritten by the next replay.
+                sums = ({k: v.clone() for k, v in metrics.items()}
+                        if sums is None
+                        else {k: sums[k] + metrics[k] for k in sums})
         return state, sums
 
     return step
@@ -335,21 +351,25 @@ def build_multi_eval_step(cfg: VariantConfig):
 
         out, fake0 = [], None
         for batch, idx in zip(batches, idxs):
-            graph = replay.get(state, vgg, batch, capture)
-            if graph is not None:
-                metrics, fake = graph.replay(
-                    batch, derive_seed(seed, idx, state.step), kl_weight)
-                metrics = {k: v.clone() for k, v in metrics.items()}
-                if fake0 is None:
-                    fake0 = fake.clone()
-            else:
-                device = batch["ru"].device
-                metrics, fake = single(state, vgg, batch, make_generator(
-                    device, seed, idx, state.step), kl_weight)
-                if device.type == "cuda":
-                    mark_warm("eval", batch)
-                if fake0 is None:
-                    fake0 = fake
+            with span("train.eval_step") as sp:
+                graph, kind = replay.get(state, vgg, batch, capture)
+                sp.set(kind=kind)
+                if graph is not None:
+                    count("train.steps_replayed")
+                    metrics, fake = graph.replay(
+                        batch, derive_seed(seed, idx, state.step), kl_weight)
+                    metrics = {k: v.clone() for k, v in metrics.items()}
+                    if fake0 is None:
+                        fake0 = fake.clone()
+                else:
+                    count("train.steps_eager")
+                    device = batch["ru"].device
+                    metrics, fake = single(state, vgg, batch, make_generator(
+                        device, seed, idx, state.step), kl_weight)
+                    if device.type == "cuda":
+                        mark_warm("eval", batch)
+                    if fake0 is None:
+                        fake0 = fake
             out.append(metrics)
         return out, fake0
 
