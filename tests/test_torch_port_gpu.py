@@ -21,6 +21,7 @@ from vae_gan_mark_tpu_torch.utils.port_jax import (
     discriminator_state_dict_from_jax, random_discriminator_tree,
     random_jax_tree, random_vgg_tree, state_dict_from_jax,
     vgg_state_dict_from_jax)
+from vae_gan_mark_tpu_torch.utils.profiling import recording
 
 pytestmark = pytest.mark.gpu
 
@@ -477,6 +478,127 @@ def test_vanilla_serving_on_card_matches_cpu(card):
         ru, mask, texts)
     assert got.shape == (5, 32, 64, 3)
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+SERVED = {"v2": {}, "vanilla": {}, "oldv": {"enc_chans": (8, 16, 24)},
+          "lr_sh": {}}
+
+
+@pytest.mark.parametrize("variant", list(SERVED))
+@pytest.mark.parametrize("batch", [1, 2])
+def test_engine_replays_a_captured_forward_as_eager(card, monkeypatch,
+                                                    variant, batch):
+    """Four requests of one chunk, each with other patches and texts: the
+    engine runs the first eagerly, captures the second and replays the
+    rest (1 eager, 1 capture, 3 replayed), and each output equals a fresh
+    engine's first, eager output on the same request and seed bit for bit.
+    The GRU kernels' host work is prepared before the capture for v2 and
+    oldv (strip-factored FiLM, gated skips); vanilla and lr_sh take the
+    sbert text path (a float ``text``) and launch no GRU, so nothing is
+    prepared. cuDNN keeps to deterministic algorithms here:
+    at batch 1 it may pick, for vanilla's transposed convolutions, one that
+    sums with atomics, and then two eager runs differ in the last bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = get_config(variant, **{**TINY, **SERVED[variant]})
+    sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    rng = np.random.default_rng(batch)
+    requests = [
+        (rng.uniform(0, 1, (batch, 32, 64, 3)).astype(np.float32),
+         (rng.uniform(0, 1, (batch, 32, 64, 1)) > 0.5).astype(np.float32),
+         [f"{word} {i}" for i in range(batch)])
+        for word in ("SALE", "NEW", "50% OFF", "x" * 20)]
+    prepared = []
+    prepare = gru.KERNEL.prepare
+    monkeypatch.setattr(gru.KERNEL, "prepare", lambda rows, hidden: (
+        prepared.append((rows, hidden)), prepare(rows, hidden)))
+    engine = InferenceEngine(cfg, sd, batch_size=batch, seed=3, device=card)
+    before = gru.KERNEL.launches
+    with recording() as rec:
+        outs = [engine.generate(*req) for req in requests]
+    assert [s.attrs["kind"] for s in rec.spans
+            if s.name == "serve.forward"] == [
+        "eager", "capture", "replay", "replay"]
+    assert rec.counters == {"serve.rows_requested": 4 * batch,
+                            "serve.rows_computed": 4 * batch,
+                            "serve.forwards_eager": 1,
+                            "serve.graph_captures": 1,
+                            "serve.forwards_replayed": 3}
+    runs_gru = cfg.text_encoder != "sbert"
+    assert gru.KERNEL.launches - before == (8 if runs_gru else 0)
+    assert prepared == ([(batch, cfg.char_rnn_hidden)] if runs_gru else [])
+    for req, out in zip(requests, outs):
+        fresh = InferenceEngine(cfg, sd, batch_size=batch, seed=3,
+                                device=card)
+        assert np.array_equal(out, fresh.generate(*req))
+
+
+def test_engine_refuses_a_capture_that_records_nothing(card, monkeypatch):
+    """A forward that launches nothing on the capture's stream (here one
+    that returns a tensor made before the capture) leaves the graph empty,
+    which PyTorch only warns of: the engine raises instead of replaying
+    stale outputs."""
+    cfg = get_config("vanilla", **TINY)
+    sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    rng = np.random.default_rng(6)
+    request = (rng.uniform(0, 1, (1, 32, 64, 3)).astype(np.float32),
+               np.ones((1, 32, 64, 1), np.float32), ["SALE"])
+    engine = InferenceEngine(cfg, sd, batch_size=1, seed=3, device=card)
+    stale = torch.tensor(engine.generate(*request), device=card)
+    monkeypatch.setattr(engine, "_forward", lambda batch: stale)
+    with pytest.raises(RuntimeError, match="recorded nothing"):
+        engine.generate(*request)
+
+
+SECOND_CARD = """
+import numpy as np, torch
+from vae_gan_mark_tpu_torch.config import get_config
+from vae_gan_mark_tpu_torch.serve import InferenceEngine
+from vae_gan_mark_tpu_torch.utils.port_jax import (
+    random_jax_tree, state_dict_from_jax)
+from vae_gan_mark_tpu_torch.utils.profiling import recording
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+rng = np.random.default_rng(0)
+requests = [(rng.uniform(0, 1, (2, 32, 64, 3)).astype(np.float32),
+             (rng.uniform(0, 1, (2, 32, 64, 1)) > 0.5).astype(np.float32),
+             [word, word + "!"]) for word in ("SALE", "NEW", "50% OFF", "X")]
+for variant in ("vanilla", "v2"):
+    cfg = get_config(variant, **TINY)
+    sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    engine = InferenceEngine(cfg, sd, batch_size=2, seed=3, device="cuda:1")
+    with recording() as rec:
+        outs = [engine.generate(*req) for req in requests]
+    assert rec.counters["serve.graph_captures"] == 1, rec.counters
+    assert rec.counters["serve.forwards_replayed"] == 3, rec.counters
+    for req, out in zip(requests, outs):
+        fresh = InferenceEngine(cfg, sd, batch_size=2, seed=3,
+                                device="cuda:1")
+        assert np.array_equal(out, fresh.generate(*req)), variant
+    assert torch.cuda.current_device() == 0
+print("served on cuda:1")
+"""
+
+
+def test_engine_on_a_second_card_replays_there(card):
+    """In a fresh process whose current device stays cuda:0, vanilla and
+    v2 engines on cuda:1 capture their forward on cuda:1: the three
+    replayed requests equal fresh engines' eager outputs bit for bit (a
+    capture on cuda:0's stream would record none of cuda:1's launches and
+    replay the capture's output for every request)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    run = subprocess.run(
+        [sys.executable, "-c", f"TINY = {TINY!r}\n" + SECOND_CARD],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "served on cuda:1" in run.stdout
 
 
 @pytest.mark.parametrize("variant", ["v2", "vanilla"])

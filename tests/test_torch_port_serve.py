@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from vae_gan_mark_tpu.ops import warp as jax_warp
 from vae_gan_mark_tpu_torch.serve import InferenceEngine
 from vae_gan_mark_tpu_torch.serve.engine import chunk_seed
+from vae_gan_mark_tpu_torch.utils.profiling import recording
 
 from torch_port_common import TINY, Pair
 
@@ -85,6 +86,22 @@ def test_generate_is_deterministic_for_a_seed(pair):
                         device="cpu").generate(ru, mask, texts)
     np.testing.assert_array_equal(a, b)
     assert not np.array_equal(a, c)
+
+
+def test_cpu_engine_never_captures_a_graph(pair):
+    """On the CPU every chunk's forward runs eagerly: a request of 3 chunks
+    counts 3 eager forwards, no capture and no replay, and each
+    ``serve.forward`` span is of kind ``eager``."""
+    engine = InferenceEngine(pair.cfg, pair.state_dict, batch_size=2,
+                             device="cpu")
+    ru, mask, texts = requests(pair.cfg, 5, 4)
+    with recording() as rec:
+        engine.generate(ru, mask, texts)
+    assert rec.counters["serve.forwards_eager"] == 3
+    assert "serve.graph_captures" not in rec.counters
+    assert "serve.forwards_replayed" not in rec.counters
+    assert [s.attrs for s in rec.spans if s.name == "serve.forward"] == [
+        {"kind": "eager"}] * 3
 
 
 def test_noise_differs_per_chunk_and_seed():

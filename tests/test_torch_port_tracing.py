@@ -147,7 +147,8 @@ def test_recordings_nest_and_count_their_own_block():
 
 def test_generate_spans_and_row_counters():
     """3 rows at engine batch 2: one ``serve.request`` with two chunks of
-    five spans each, all under it; 3 rows requested, 4 computed."""
+    five spans each, all under it; 3 rows requested, 4 computed, and both
+    chunks' forwards eager (a CPU engine captures no graph)."""
     cfg = get_config("v2", **TINY)
     g_sd, _ = init_state_dicts(cfg, 0)
     engine = InferenceEngine(cfg, g_sd, batch_size=2, seed=1, device="cpu")
@@ -167,7 +168,8 @@ def test_generate_spans_and_row_counters():
     in_order = sorted(children, key=lambda s: s.start)
     assert [s.name for s in in_order] == list(CHUNK * 2)
     assert rec.counters == {"serve.rows_requested": 3,
-                            "serve.rows_computed": 4}
+                            "serve.rows_computed": 4,
+                            "serve.forwards_eager": 2}
 
 
 def sources(cfg, steps, val_batches):

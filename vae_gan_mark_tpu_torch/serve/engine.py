@@ -14,6 +14,24 @@ inside it each chunk's copies to the device, the generator's forward and
 the copy back are the spans ``serve.copy_in``, ``serve.forward`` and
 ``serve.copy_out``, beside ``serve/chunks.py``'s.
 
+On a CUDA device the generator's forward is a CUDA graph
+(``train/graphs.py:CapturedStep``). An engine's first chunk of a batch
+signature (the keys, shapes and dtypes of ``ru``, ``mask``, ``text`` and
+``eps``) runs eagerly; its second is captured (after the GRU kernels' host
+work, ``ops/gru.py:CudaGRU.prepare``, where the generator launches them)
+and replayed; every later chunk copies its host arrays into the graph's
+inputs and replays it. A replay's output is read back to the host before
+the next chunk runs, and one lock serialises the chunks, so threads that
+share an engine never interleave on the graph's buffers. A chunk runs with
+the engine's card as the current device, so that the capture records the
+launches of an engine on any card; a capture that records nothing (one on
+another card's stream: PyTorch's capture stream is one a process) raises.
+One signature is captured; a chunk of another one runs eagerly. On the CPU
+every chunk runs eagerly, without the lock. The ``serve.forward`` span's ``kind`` is ``eager``, ``capture``
+or ``replay``; the counters ``serve.forwards_eager`` and
+``serve.forwards_replayed`` count the chunks, ``serve.graph_captures`` the
+captures.
+
 ``InferenceEngine.from_checkpoint`` serves the generator of a trainer's
 checkpoint (``train/checkpoint.py``); ``python -m vae_gan_mark_tpu_torch.serve``
 renders one image with it.
@@ -21,7 +39,10 @@ renders one image with it.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Sequence, Union
+import contextlib
+import threading
+import warnings
+from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,11 +52,27 @@ from vae_gan_mark_tpu_torch.data import as_batch_tensor
 from vae_gan_mark_tpu_torch.data.text_embed import encode_texts
 from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
+from vae_gan_mark_tpu_torch.ops import gru
+from vae_gan_mark_tpu_torch.ops.cuda_build import add_launches
 from vae_gan_mark_tpu_torch.ops.warp import (
     perspective_crop_batch, perspective_unwarp)
 from vae_gan_mark_tpu_torch.serve.chunks import (  # noqa: F401 (chunk_seed)
     chunk_noise, chunk_seed, generate_in_chunks)
-from vae_gan_mark_tpu_torch.utils.profiling import span
+from vae_gan_mark_tpu_torch.train.graphs import (
+    CapturedStep, Signature, batch_signature)
+from vae_gan_mark_tpu_torch.utils.profiling import count, span
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """``arr`` as a CPU tensor, sharing its memory where numpy allows: a
+    copy would cost a fresh host buffer a chunk, whose page faults and
+    unmapping the host pays on every request."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr)
 
 
 class InferenceEngine:
@@ -46,6 +83,13 @@ class InferenceEngine:
     on the CPU unless asked to. ``text_embed_fn`` (texts -> (N, sbert_dim))
     embeds the texts for the sbert text path; without it they go through
     ``hash_embed``.
+
+    On a CUDA device the first chunk of a signature runs eagerly, the
+    second is captured as a CUDA graph and every later one replays it
+    (read back before the next chunk); ``serve.forwards_eager``,
+    ``serve.forwards_replayed`` and ``serve.graph_captures`` count them.
+    One lock serialises the chunks of all threads, each run with the
+    engine's card as the current device.
     """
 
     def __init__(self, cfg: VariantConfig,
@@ -69,6 +113,16 @@ class InferenceEngine:
             model = VAEGANGenerator(cfg)
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()
+        # The GRU kernels' host work is done before a capture, for configs
+        # whose generator runs them (the char text paths).
+        self._gru_hidden = (cfg.char_rnn_hidden
+                            if cfg.text_encoder != "sbert" else None)
+        # The signature of this engine's first eager chunk on the card: a
+        # capture needs one such run first (``train/graphs.py``). Kept per
+        # engine, so that each engine's first chunk runs eagerly.
+        self._eager_signature: Optional[Signature] = None
+        self._graph: Optional[CapturedStep] = None
+        self._lock = threading.Lock()
 
     @classmethod
     def from_checkpoint(cls, cfg: VariantConfig, workdir: str,
@@ -112,16 +166,80 @@ class InferenceEngine:
                                       ru, mask, texts, self.batch_size,
                                       self.seed, self.cfg.z_ch)
 
+    def _forward(self, batch: Batch) -> torch.Tensor:
+        recon, _, _ = self.model(batch["ru"], batch["mask"], batch["text"],
+                                 eps=batch["eps"])
+        return recon
+
+    def _capture(self, batch: Batch) -> CapturedStep:
+        """The forward on ``batch`` (device tensors) captured as a CUDA
+        graph whose inputs hold ``batch``; raises if the capture recorded
+        no launch, which PyTorch only warns of."""
+        if self._gru_hidden is not None:
+            gru.KERNEL.prepare(batch["ru"].shape[0], self._gru_hidden)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            graph = CapturedStep(
+                lambda inputs, generator, kl_weight: self._forward(inputs),
+                batch)
+        for w in caught:
+            if "CUDA Graph is empty" in str(w.message):
+                raise RuntimeError(
+                    f"the capture of the generator's forward on "
+                    f"{self.device} recorded nothing: was it made on another "
+                    f"card's stream? (PyTorch keeps one capture stream a "
+                    f"process: serve one card a process)")
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+        self._graph = graph
+        count("serve.graph_captures")
+        return graph
+
+    @contextlib.contextmanager
+    def _on_card(self) -> Iterator[None]:
+        """One chunk at a time, with the engine's card as the current
+        device; nothing on the CPU."""
+        if self.device.type != "cuda":
+            yield
+            return
+        with self._lock, torch.cuda.device(self.device):
+            yield
+
     def _run_chunk(self, ru: np.ndarray, mask: np.ndarray, text: np.ndarray,
                    eps: torch.Tensor) -> np.ndarray:
-        with span("serve.copy_in"):
-            ru_t, mask_t = self._to_device(ru), self._to_device(mask)
-            text_t = as_batch_tensor("text", self._to_device(text))
-            eps_t = eps.to(self.device)
-        with span("serve.forward"):
-            recon, _, _ = self.model(ru_t, mask_t, text_t, eps=eps_t)
-        with span("serve.copy_out"):
-            return recon.cpu().numpy()
+        with self._on_card():
+            with span("serve.copy_in"):
+                host = {"ru": _host_tensor(ru), "mask": _host_tensor(mask),
+                        "text": as_batch_tensor("text", _host_tensor(text)),
+                        "eps": eps}
+                graph = self._graph
+                if graph is not None and not graph.fits(host):
+                    graph = None
+                if graph is not None:
+                    for key, static in graph.inputs.items():
+                        static.copy_(host[key])
+                    batch = graph.inputs
+                else:
+                    batch = {k: v.to(self.device) for k, v in host.items()}
+            with span("serve.forward") as sp:
+                kind = "eager" if graph is None else "replay"
+                if kind == "eager" and self._graph is None and \
+                        batch_signature(batch) == self._eager_signature:
+                    graph, kind = self._capture(batch), "capture"
+                sp.set(kind=kind)
+                if graph is None:
+                    count("serve.forwards_eager")
+                    recon = self._forward(batch)
+                    if self.device.type == "cuda" and \
+                            self._eager_signature is None:
+                        self._eager_signature = batch_signature(batch)
+                else:
+                    count("serve.forwards_replayed")
+                    graph.graph.replay()
+                    add_launches(graph.launches)
+                    recon = graph.outputs
+            with span("serve.copy_out"):
+                return recon.cpu().numpy()
 
     @torch.no_grad()
     def render(self, image: np.ndarray, mask_image: np.ndarray,
