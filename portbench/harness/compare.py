@@ -14,16 +14,18 @@ from the same weights, batches and seeds):
   the worst leaf's |norm - reference norm| over the larger of that leaf's
   reference norm and the median leaf's of its network; ``grad_med_gap``
   the median leaf's;
-* ``text_grad_gap``: as ``grad_gap`` over the text encoder's leaves alone
-  (the BiGRU, whose gradient the GRU backward kernel makes, and what
-  feeds it), against the median leaf of that group;
+* ``text_grad_gap``: as ``grad_gap`` over the text path's leaves alone
+  (the reference's ``text_leaves``, by its module's ``TEXT_PREFIXES``: for
+  the char path the BiGRU, whose gradient the GRU backward kernel makes,
+  and the rest of its encoder), against the median leaf of that group;
 * ``change_gap``: each parameter's change over the checked steps, per leaf,
   measured as ``grad_gap``; ``change_med_gap`` the median leaf's;
 * ``val_recon_gap``, ``val_perc_gap``: the relative gaps of validation's
   mean ``recon`` and ``perc``, the terms of the generator's eval-mode
-  output; ``val_gap`` the larger; ``val_missing`` the number of the
-  reference's validation terms that the program's validation did not
-  return (a missing term also reads infinite in the gaps). The
+  output, where the reference's validation gives them (``perc`` only with
+  ``full_loss_val``); ``val_gap`` the largest; ``val_missing`` the number
+  of the reference's validation terms that the program's validation did
+  not return (a missing term also reads infinite in the gaps). The
   discriminator's terms are not compared: five Adam steps part its outputs
   by several percent at rounding's level of difference (the witness: with
   both rates 0 every term agrees to 1e-6 on the CPU).
@@ -46,7 +48,6 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 
 EXCLUDE_BELOW = 1e-3
-TEXT_LEAVES = "G.char_text_encoder_module."
 VAL_TERMS = ("recon", "perc")
 
 
@@ -99,16 +100,18 @@ def train_numbers(prog: dict, ref: dict) -> Dict[str, dict]:
     for name, key in (("grad", "grad1"), ("change", "change")):
         out.update(_worst_and_median(name, leaf_gaps(prog[key], ref[key],
                                                      leaves)))
-    text = [k for k in leaves if k.startswith(TEXT_LEAVES)]
+    text_leaves = set(ref["text_leaves"])
+    text = [k for k in leaves if k in text_leaves]
     med = float(np.median([ref["grad1"][k] for k in text]))
     gaps = {k: _gap(prog["grad1"][k], ref["grad1"][k], med) for k in text}
     worst = max(gaps, key=gaps.get)
     out["text_grad_gap"] = {"value": gaps[worst], "leaf": worst}
-    for k in VAL_TERMS:
+    val_terms = [k for k in VAL_TERMS if k in ref["val"]]
+    for k in val_terms:
         out[f"val_{k}_gap"] = {"value": _rel(prog["val"].get(k, float("nan")),
                                              ref["val"][k])}
     out["val_gap"] = {"value": max(out[f"val_{k}_gap"]["value"]
-                                   for k in VAL_TERMS)}
+                                   for k in val_terms)}
     out["val_missing"] = {"value": float(len(set(ref["val"])
                                              - set(prog["val"])))}
     out["_leaves"] = {"kept": len(leaves),

@@ -7,7 +7,9 @@ at a seeded corner (the mask, (N, H, W, 1)); the target ``en`` is the
 patch with its channels rotated inside the region. Target strings are 3 to
 60 characters of the configuration's alphabet, drawn with numpy from the
 seed. Sub-seeds come from ``sub_seed(seed, tag)``, so the weights, the data,
-the noise and the traffic are independent streams of one run seed.
+the noise and the traffic are independent streams of one run seed. The
+strings become the generator's text inputs by the configuration's
+reference module (``text_inputs``).
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-
-from reference.serve import tokenize
 
 TAGS = {"weights": 1, "data": 2, "trainer": 3, "engine": 4, "traffic": 5,
         "sample": 6, "calib": 7}
@@ -56,11 +56,6 @@ def texts(cfg: dict, n: int, seed: int) -> List[str]:
     alphabet = np.array(list(cfg["alphabet"]))
     lengths = rng.integers(3, cfg["max_text_len"] + 1, n)
     return ["".join(rng.choice(alphabet, int(k))) for k in lengths]
-
-
-def tokens(cfg: dict, strings: Sequence[str], device) -> torch.Tensor:
-    return torch.from_numpy(tokenize(strings, cfg["alphabet"],
-                                     cfg["max_text_len"])).to(device)
 
 
 class DeviceSource:
@@ -102,13 +97,14 @@ class DeviceSource:
             yield self.batch(self.rows(epoch, i))
 
 
-def train_sets(cfg: dict, traffic: dict, seed: int, device):
-    """(train source, val source) of the traffic's sizes."""
+def train_sets(cell, seed: int, device):
+    """(train source, val source) of the cell's traffic's sizes."""
+    cfg, traffic = cell.config, cell.traffic
     n_train, n_val = traffic["train_samples"], traffic["val_samples"]
     data_seed = sub_seed(seed, "data")
     arrays = patches(cfg, n_train + n_val, data_seed, device)
     strings = texts(cfg, n_train + n_val, data_seed)
-    arrays["text"] = tokens(cfg, strings, device)
+    arrays["text"] = cell.reference.text_inputs(cfg, strings, device)
     bs = traffic["batch_size"]
     train = DeviceSource({k: v[:n_train] for k, v in arrays.items()},
                          strings[:n_train], bs, advance=True)

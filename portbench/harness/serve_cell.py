@@ -28,7 +28,7 @@ from harness import common, data, flops, manifest, peaks, trace
 from harness import traffic as gen
 from harness.compare import decide, serve_numbers
 from harness.weights import make_state_dicts
-from reference.model import BatchNorm, Generator, set_precision
+from reference.model import BatchNorm, set_precision
 from reference.serve import serve_rows
 
 
@@ -44,10 +44,11 @@ CALIB_ROWS = 16
 def generator_weights(cell: manifest.Cell, seed: int, device):
     """(G's state dict with every BatchNorm's running statistics set to one
     seeded batch's (momentum 1), the seconds that statistics pass took)."""
-    cfg = cell.config
-    g_sd, _, _ = make_state_dicts(cfg, data.sub_seed(seed, "weights"), device)
+    cfg, arch = cell.config, cell.reference
+    g_sd, _, _ = make_state_dicts(cell, data.sub_seed(seed, "weights"),
+                                  device)
     t0 = time.perf_counter()
-    g = Generator(cfg)
+    g = arch.Generator(cfg)
     g.load_state_dict(g_sd)
     g.to(device).train()
     for m in g.modules():
@@ -55,15 +56,15 @@ def generator_weights(cell: manifest.Cell, seed: int, device):
             m.momentum = 1.0
     batch = data.patches(cfg, CALIB_ROWS, data.sub_seed(seed, "calib"),
                          device)
-    tokens = data.tokens(cfg, data.texts(cfg, CALIB_ROWS, data.sub_seed(
+    text = arch.text_inputs(cfg, data.texts(cfg, CALIB_ROWS, data.sub_seed(
         seed, "calib")), device)
     gen = torch.Generator(device=device).manual_seed(
         data.sub_seed(seed, "calib"))
     with torch.no_grad(), common.float32_scope():
-        g(batch["ru"], batch["mask"], tokens, generator=gen)
+        g(batch["ru"], batch["mask"], text, generator=gen)
     g_sd.update({k: v.detach().clone() for k, v in g.state_dict().items()
                  if k.endswith(("running_mean", "running_var"))})
-    del g, batch, tokens
+    del g, batch, text
     common.free_device(device)
     return g_sd, time.perf_counter() - t0
 
@@ -164,8 +165,8 @@ def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
 def reference_pairs(cell: manifest.Cell, seed: int, g_sd: dict, pool,
                     items, device, precision: str = "float32"):
     """(program patches, reference patches) of each sampled request."""
-    cfg = cell.config
-    g = Generator(cfg)
+    cfg, arch = cell.config, cell.reference
+    g = arch.Generator(cfg)
     g.load_state_dict(g_sd)
     g.to(device)
     set_precision([g], precision)
@@ -175,7 +176,8 @@ def reference_pairs(cell: manifest.Cell, seed: int, g_sd: dict, pool,
         for req, out in items:
             ref = serve_rows(g, cfg, ru_pool[req.offset:req.offset + req.size],
                              mask_pool[req.offset:req.offset + req.size],
-                             req.texts, data.sub_seed(seed, "engine"),
+                             arch.text_inputs(cfg, req.texts, device),
+                             data.sub_seed(seed, "engine"),
                              cell.traffic["engine_batch"], device)
             pairs.append((out, ref))
     return pairs
@@ -231,7 +233,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
                     checks=checks, extra=extra)
     t0, t1 = rec["t_slice"]
     least = peaks.least_seconds(flops.generate_flops_per_patch(
-        cell.config, cell.traffic["engine_batch"]))
+        cell.reference, cell.config, cell.traffic["engine_batch"]))
     run_ = common.TracedRun(cfg=cell.config, traffic=cell.traffic, t0=t0,
                             t1=t1, events=rec["events"], spans=rec["spans"],
                             window_s=rec["window_s"],

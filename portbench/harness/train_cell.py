@@ -35,8 +35,8 @@ def build_trainer(cell: manifest.Cell, seed: int, device: torch.device):
     from vae_gan_mark_tpu_torch.train.metrics import NullLogger
 
     cfg, traffic = cell.config, cell.traffic
-    train, val = data.train_sets(cfg, traffic, seed, device)
-    g_sd, d_sd, vgg_sd = make_state_dicts(cfg, data.sub_seed(seed, "weights"),
+    train, val = data.train_sets(cell, seed, device)
+    g_sd, d_sd, vgg_sd = make_state_dicts(cell, data.sub_seed(seed, "weights"),
                                           device)
     workdir = tempfile.mkdtemp(prefix="portbench_")
     trainer = Trainer(manifest.port_config(cfg), train, val, workdir,
@@ -55,13 +55,15 @@ def _named(trainer) -> Dict[str, torch.nn.Parameter]:
 
 def _grad_norms(trainer, named, b1: float) -> Dict[str, float]:
     """Each leaf's first gradient from Adam's state after one step:
-    ``exp_avg / (1 - b1)``."""
+    ``exp_avg / (1 - b1)``; 0 for a leaf that Adam holds no state of (no
+    gradient reached it)."""
     out = {}
     for k, p in named.items():
         opt = trainer.state.opt_g if k.startswith("G.") \
             else trainer.state.opt_d
+        state = opt.state.get(p, {})
         out[k] = float(torch.linalg.vector_norm(
-            opt.state[p]["exp_avg"] / (1 - b1)))
+            state["exp_avg"] / (1 - b1))) if "exp_avg" in state else 0.0
     return out
 
 
@@ -92,8 +94,8 @@ def checked_steps(cell: manifest.Cell, trainer, train) -> dict:
 def reference_steps(cell: manifest.Cell, seed: int, device,
                     precision: str = "float32", fault=None) -> dict:
     cfg = cell.config
-    train, val = data.train_sets(cfg, cell.traffic, seed, device)
-    g_sd, d_sd, vgg_sd = make_state_dicts(cfg, data.sub_seed(seed, "weights"),
+    train, val = data.train_sets(cell, seed, device)
+    g_sd, d_sd, vgg_sd = make_state_dicts(cell, data.sub_seed(seed, "weights"),
                                           device)
 
     def plain(source, i):
@@ -105,7 +107,7 @@ def reference_steps(cell: manifest.Cell, seed: int, device,
         epochs.append([plain(train, i) for i in range(first, first + count)])
         first += count
     with common.float32_scope():
-        return run_steps(cfg, g_sd, d_sd, vgg_sd, epochs,
+        return run_steps(cell.reference, cfg, g_sd, d_sd, vgg_sd, epochs,
                          [plain(val, i) for i in range(val.steps)],
                          data.sub_seed(seed, "trainer"), kl_weight(cfg, 0),
                          device, precision, fault)
@@ -176,7 +178,8 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
                     metrics=metrics, device=device_info, checks=checks,
                     extra={"numbers": numbers})
     t0, t1 = t_slice
-    least = peaks.least_seconds(flops.train_step_flops(cell.config, bs))
+    least = peaks.least_seconds(flops.train_step_flops(
+        cell.reference, cell.config, bs))
     traced_steps = n_traced * steps_per_epoch
     run_ = common.TracedRun(cfg=cell.config, traffic=traffic, t0=t0, t1=t1,
                             events=events, spans=spans, window_s=window_s,

@@ -2,9 +2,12 @@
 
 The leaves and their initialisers come from the reference modules built on
 the meta device (each leaf carries ``init``: torch's default for its layer
-kind). One ``torch.rand`` covers every uniform leaf and one ``torch.randn``
-every normal leaf; each leaf is then a scaled view of its slice. The same
-state dicts go to the program and to the reference.
+kind): the generator of the cell's reference module, then the shared
+discriminator and VGG head. One ``torch.rand`` covers every uniform leaf
+and one ``torch.randn`` every normal leaf; each leaf is then a scaled view
+of its slice, and the reference module's ``fix_weights`` sets what the
+draws must not decide. The same state dicts go to the program and to the
+reference.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from reference.model import Discriminator, Generator, VGGHead
+from reference.model import Discriminator, VGGHead
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -27,11 +30,13 @@ def _leaves(module: torch.nn.Module):
             yield name, tuple(t.shape), init
 
 
-def make_state_dicts(cfg: dict, seed: int, device
+def make_state_dicts(cell, seed: int, device
                      ) -> Tuple[StateDict, StateDict, StateDict]:
-    """(G, D, VGG) state dicts, float32 on ``device``."""
+    """(G, D, VGG) state dicts of ``cell``'s configuration, float32 on
+    ``device``."""
+    arch = cell.reference
     with torch.device("meta"):
-        modules = {"G": Generator(cfg), "D": Discriminator(),
+        modules = {"G": arch.Generator(cell.config), "D": Discriminator(),
                    "VGG": VGGHead()}
     leaves = [(part, name, shape, init) for part, m in modules.items()
               for name, shape, init in _leaves(m)]
@@ -67,6 +72,5 @@ def make_state_dicts(cfg: dict, seed: int, device
         else:
             raise ValueError(f"init {kind!r} of {part}.{name}")
         out[part][name] = t.clone()
-    # The padding token's row is zero, as nn.Embedding(padding_idx=0).
-    out["G"]["char_text_encoder_module.embedding.weight"][0].zero_()
+    arch.fix_weights(out["G"])
     return out["G"], out["D"], out["VGG"]

@@ -8,27 +8,15 @@ noise from a CPU ``torch.Generator`` seeded from ``chunk_seed(seed,
 start)``, one N(0, 1) draw of shape (batch_size, 1, 1, z_ch), row i of the
 chunk taking row i. In eval mode every row is computed on its own, so the
 reference runs the real rows alone, in blocks of at most ``batch_size``.
-Texts become tokens by the character alphabet (index + 1, 0 for padding
-and unknown characters, cut to ``max_text_len``).
+Texts come as the generator's reference module makes them
+(``text_inputs``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
-
 import numpy as np
 import torch
-
-from reference.model import Generator
-
-
-def tokenize(texts: Sequence[str], alphabet: str, max_len: int) -> np.ndarray:
-    index = {ch: i + 1 for i, ch in enumerate(alphabet)}
-    out = np.zeros((len(texts), max_len), np.int64)
-    for row, text in enumerate(texts):
-        for col, ch in enumerate(text[:max_len]):
-            out[row, col] = index.get(ch, 0)
-    return out
+from torch import nn
 
 
 def chunk_seed(seed: int, start: int) -> int:
@@ -44,12 +32,12 @@ def chunk_noise(seed: int, start: int, batch_size: int,
 
 
 @torch.no_grad()
-def serve_rows(g: Generator, cfg: dict, ru: np.ndarray, mask: np.ndarray,
-               texts: Sequence[str], seed: int, batch_size: int,
+def serve_rows(g: nn.Module, cfg: dict, ru: np.ndarray, mask: np.ndarray,
+               text: torch.Tensor, seed: int, batch_size: int,
                device) -> np.ndarray:
-    """The (N, H, W, 3) patches of one request."""
+    """The (N, H, W, 3) patches of one request; ``text`` holds its N rows'
+    text inputs."""
     g.eval()
-    tokens = tokenize(texts, cfg["alphabet"], cfg["max_text_len"])
     outs = []
     for start in range(0, ru.shape[0], batch_size):
         end = min(start + batch_size, ru.shape[0])
@@ -57,7 +45,7 @@ def serve_rows(g: Generator, cfg: dict, ru: np.ndarray, mask: np.ndarray,
 
         def put(a):
             return torch.as_tensor(a[start:end]).to(device)
-        recon, _, _ = g(put(ru).float(), put(mask).float(), put(tokens),
+        recon, _, _ = g(put(ru).float(), put(mask).float(), put(text),
                         eps=eps.permute(0, 3, 1, 2).to(device))
         outs.append(recon.cpu().numpy())
     return np.concatenate(outs)

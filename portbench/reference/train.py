@@ -12,18 +12,21 @@ relu3_3 features``, its gradient clipped to the global norm, Adam. Adam is
 written out: ``p -= lr * m_hat / (sqrt(v_hat) + eps)``. Validation: the
 generator in eval mode (running statistics, no dropout, the noise of val
 batch ``i`` after step ``s`` from ``(trainer seed, i, s)``), the same
-terms with the discriminator's power iteration held, weighted by batch
-size over the val batches.
+terms with the discriminator's power iteration held (``recon`` and ``kl``
+alone where the configuration's ``full_loss_val`` is off), weighted by
+batch size over the val batches.
 
-``run_steps`` returns what the comparison reads: each checked epoch's
-mean terms, the gradient each optimizer received at the first step (per
-leaf, its norm), each parameter's change over all the steps (per leaf, its
-norm), and the validation's terms. ``fault`` plants one: ``unchanged`` (no step moves
-a parameter or the optimizers' state), ``half_batch`` (every step sees
-the first half of its batch), ``reuse`` (every step of an epoch sees the
-epoch's first batch), ``text_grad_x2`` (the BiGRU's and the embedding's
-gradients doubled before the clip), ``val_half`` (validation over the
-first val batch alone).
+The generator is the configuration's: ``arch`` is its reference module
+(``reference/__init__.py``). ``run_steps`` returns what the comparison
+reads: each checked epoch's mean terms, the gradient each optimizer
+received at the first step (per leaf, its norm), each parameter's change
+over all the steps (per leaf, its norm), the validation's terms, and the
+generator's leaves of the text path. ``fault`` plants one: ``unchanged``
+(no step moves a parameter or the optimizers' state), ``half_batch``
+(every step sees the first half of its batch), ``reuse`` (every step of an
+epoch sees the epoch's first batch), ``text_grad_x2`` (the text path's
+gradients, ``arch.TEXT_PREFIXES``, doubled before the clip), ``val_half``
+(validation over the first val batch alone).
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from reference.model import Discriminator, Generator, VGGHead, set_precision
+from reference.model import Discriminator, VGGHead, set_precision
 
 
 def derive_seed(*keys: int) -> int:
@@ -98,12 +101,14 @@ def kl_divergence(mu, logvar):
 
 
 class Models:
-    """G, D and the VGG head loaded from the state dicts on ``device``."""
+    """G (``arch.Generator``), D and the VGG head loaded from the state
+    dicts on ``device``."""
 
-    def __init__(self, cfg: dict, g_sd: Mapping, d_sd: Mapping,
+    def __init__(self, arch, cfg: dict, g_sd: Mapping, d_sd: Mapping,
                  vgg_sd: Mapping, device, precision: str = "float32"):
+        self.arch = arch
         self.cfg = cfg
-        self.g = Generator(cfg)
+        self.g = arch.Generator(cfg)
         self.d = Discriminator()
         self.vgg = VGGHead()
         for m, sd in ((self.g, g_sd), (self.d, d_sd), (self.vgg, vgg_sd)):
@@ -116,8 +121,6 @@ class Models:
 
 
 TERMS = ("loss_G", "loss_D", "recon", "kl", "gan_g", "perc")
-TEXT_GRAD = ("char_text_encoder_module.rnn.",
-             "char_text_encoder_module.embedding.")
 
 
 def train_step(models: Models, opt_g: Adam, opt_d: Adam, batch: Mapping,
@@ -159,7 +162,8 @@ def train_step(models: Models, opt_g: Adam, opt_d: Adam, batch: Mapping,
     g_params = list(models.g_params.values())
     grads_g = list(torch.autograd.grad(loss_g, g_params))
     if text_grad_x2:
-        grads_g = [g * 2.0 if k.startswith(TEXT_GRAD) else g
+        text = models.arch.TEXT_PREFIXES
+        grads_g = [g * 2.0 if k.startswith(text) else g
                    for k, g in zip(models.g_params, grads_g)]
     grads_g = clip_by_global_norm(grads_g, cfg["grad_clip_norm"])
     if update:
@@ -185,16 +189,19 @@ def validate(models: Models, batches: Sequence[Mapping], trainer_seed: int,
         real = batch["en"]
         fake, mu, logvar = g_model(batch["ru"], batch["mask"], batch["text"],
                                    generator=gen)
-        fake_p = d_model(low(fake), update=False)
-        real_p = d_model(low(real), update=False)
         recon, kl = l1(fake, real), kl_divergence(mu, logvar)
-        gan = -torch.mean(fake_p)
-        perc = l1(models.vgg(fake), models.vgg(real))
-        terms = {"recon": recon, "kl": kl, "gan_g": gan, "perc": perc,
-                 "loss_G": cfg["recon_weight"] * recon + kl_w * kl
-                 + cfg["gan_weight"] * gan + cfg["perc_weight"] * perc,
-                 "loss_D": 0.5 * (torch.mean(F.relu(1.0 - real_p))
-                                  + torch.mean(F.relu(1.0 + fake_p)))}
+        terms = {"recon": recon, "kl": kl}
+        if cfg["full_loss_val"]:
+            fake_p = d_model(low(fake), update=False)
+            real_p = d_model(low(real), update=False)
+            gan = -torch.mean(fake_p)
+            perc = l1(models.vgg(fake), models.vgg(real))
+            terms.update({
+                "gan_g": gan, "perc": perc,
+                "loss_G": cfg["recon_weight"] * recon + kl_w * kl
+                + cfg["gan_weight"] * gan + cfg["perc_weight"] * perc,
+                "loss_D": 0.5 * (torch.mean(F.relu(1.0 - real_p))
+                                 + torch.mean(F.relu(1.0 + fake_p)))})
         n = batch["ru"].shape[0]
         rows += n
         for k, v in terms.items():
@@ -203,14 +210,14 @@ def validate(models: Models, batches: Sequence[Mapping], trainer_seed: int,
     return {k: v / max(rows, 1) for k, v in sums.items()}
 
 
-def run_steps(cfg: dict, g_sd: Mapping, d_sd: Mapping, vgg_sd: Mapping,
-              epochs: Sequence[Sequence[Mapping]],
+def run_steps(arch, cfg: dict, g_sd: Mapping, d_sd: Mapping,
+              vgg_sd: Mapping, epochs: Sequence[Sequence[Mapping]],
               val_batches: Sequence[Mapping], trainer_seed: int, kl_w: float,
               device, precision: str = "float32",
               fault: Optional[str] = None) -> dict:
     """The checked epochs' steps from the given state, in order, step ``s``
     drawing from ``derive_seed(trainer_seed, s)``, then validation."""
-    models = Models(cfg, g_sd, d_sd, vgg_sd, device, precision)
+    models = Models(arch, cfg, g_sd, d_sd, vgg_sd, device, precision)
     betas = (cfg["adam_b1"], cfg["adam_b2"])
     opt_g = Adam(models.g_params.values(), cfg["lr_g"], betas)
     opt_d = Adam(models.d_params.values(), cfg["lr_d"], betas)
@@ -244,7 +251,10 @@ def run_steps(cfg: dict, g_sd: Mapping, d_sd: Mapping, vgg_sd: Mapping,
               for k, v in _prefixed(models).items()}
     val = validate(models, val_batches[:1] if fault == "val_half"
                    else val_batches, trainer_seed, step, kl_w)
-    return {"losses": losses, "grad1": grad1, "change": change, "val": val}
+    text = [f"G.{k}" for k in models.g_params
+            if k.startswith(arch.TEXT_PREFIXES)]
+    return {"losses": losses, "grad1": grad1, "change": change, "val": val,
+            "text_leaves": text}
 
 
 def _prefixed(models: Models) -> Dict[str, torch.Tensor]:

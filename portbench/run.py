@@ -7,7 +7,9 @@ of standard output.
 The cell, its configuration, traffic and limits are found by name from
 ``BENCHMARK.json`` (``harness/manifest.py``). The program under test is
 ``vae_gan_mark_tpu_torch`` on the card; without a card, or with fewer cards
-than the cell asks for, the run exits with code 2 and prints no result.
+than the cell asks for, or where the cell's files do not describe it (its
+configuration names no reference module that is there, say), the run exits
+with code 2 and prints no result.
 With ``--trace 0`` the result holds the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read from a profiled slice of the
 window. The numbers that decide ``correct`` are printed with their limits
@@ -72,7 +74,11 @@ def main(argv=None) -> int:
 
     from harness import common, manifest
 
-    cell = manifest.Cell(args.workload)
+    try:
+        cell = manifest.Cell(args.workload)
+    except manifest.ManifestError as e:
+        print(f"portbench: {e}", file=sys.stderr)
+        return 2
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < cell.chips:
         print(f"portbench: {args.workload} needs {cell.chips} CUDA "

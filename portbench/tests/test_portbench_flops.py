@@ -10,7 +10,7 @@ import torch
 from torch import nn
 from torch.utils.flop_counter import FlopCounterMode
 
-from harness import flops, peaks
+from harness import flops, manifest, peaks
 
 CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
@@ -31,8 +31,9 @@ def test_train_step_splits_by_precision(tmp_path):
     cfg.update(patch_h=32, patch_w=64, enc_chans=[8, 16, 24, 32],
                bottleneck_ch=48, z_ch=16, char_emb_dim=16,
                char_rnn_hidden=16, max_text_len=12)
-    step = flops.train_step_flops(cfg, 4)
-    fwd = flops.generate_flops_per_patch(cfg, 4)
+    arch = manifest.reference_module(cfg)
+    step = flops.train_step_flops(arch, cfg, 4)
+    fwd = flops.generate_flops_per_patch(arch, cfg, 4)
     assert step["bf16"] > 0 and step["f32"] > 0
     # The GRU's forward: 2 layers x 2 directions x (input projection +
     # recurrence) at 12 steps a row, float32.

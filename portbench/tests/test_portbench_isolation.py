@@ -35,8 +35,9 @@ def test_no_jax(rel):
 def test_reference_imports_nothing_of_the_program(rel):
     names = set(top_level_imports(BENCH_DIR / rel))
     assert "vae_gan_mark_tpu_torch" not in names
-    assert names <= {"__future__", "math", "typing", "numpy", "torch",
-                     "reference"}, names
+    # hashlib: plain.py's own copy of the program's sentence pseudo-embedding
+    assert names <= {"__future__", "hashlib", "math", "typing", "numpy",
+                     "torch", "reference"}, names
 
 
 def test_the_check_compares_whole_names():

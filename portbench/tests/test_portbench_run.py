@@ -1,6 +1,7 @@
 """``run.py`` without a card: it exits non-zero and prints no result, in
 the checkout and in a directory that holds only BENCHMARK.json and
-``portbench/``."""
+``portbench/``; and so does a cell whose configuration names no reference
+module that is there, before it looks for a card."""
 
 import json
 import os
@@ -35,6 +36,13 @@ def _no_result(stdout: str) -> bool:
     return True
 
 
+def _copy(tmp_path: Path) -> Path:
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return tmp_path
+
+
 def test_no_card_no_result():
     proc = _run(ROOT)
     assert proc.returncode != 0
@@ -43,12 +51,25 @@ def test_no_card_no_result():
 
 
 def test_only_the_benchmark_files(tmp_path):
-    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    proc = _run(tmp_path)
+    proc = _run(_copy(tmp_path))
     assert proc.returncode != 0
     assert _no_result(proc.stdout)
+
+
+@pytest.mark.parametrize("reference", [None, "no_such_module"],
+                         ids=["no_key", "missing_module"])
+def test_config_without_its_reference_fails(tmp_path, reference):
+    root = _copy(tmp_path)
+    path = root / "portbench" / "configs" / "v2.json"
+    cfg = json.loads(path.read_text())
+    del cfg["reference"]
+    if reference is not None:
+        cfg["reference"] = reference
+    path.write_text(json.dumps(cfg))
+    proc = _run(root)
+    assert proc.returncode != 0
+    assert _no_result(proc.stdout)
+    assert "reference" in proc.stderr and "device(s)" not in proc.stderr
 
 
 def test_unknown_workload_fails():
