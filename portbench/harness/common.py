@@ -22,8 +22,25 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "vae_gan_mark_tpu")
 class TracedRun:
     """What a per-layer reader reads: the traced slice [t0, t1] (wall-clock
     ns) with the device events inside it, the harness's spans over the
-    whole window, the work done inside the slice, and the least time of a
-    unit of work at the card's peaks."""
+    whole window, the program's own spans and counters over the slice, the
+    work done inside the slice, and the least time of a unit of work at the
+    card's peaks.
+
+    ``program_spans`` are the ``SpanRecord``s (name, start, end, id, parent,
+    root, thread, attrs) that ``vae_gan_mark_tpu_torch/utils/profiling.py``
+    recorded while the slice ran, cut to [t0, t1]; ``counters`` is the
+    change of each of its counters over the slice (a counter that did not
+    change is absent). Both are empty where nothing was recorded. The
+    recorder runs in ``--trace 1`` runs alone, so the timed runs pay nothing
+    for it. ``harness/spans.py`` has what readers of them share: spans by
+    name, spans grouped by root, a span's self time, and the device's idle
+    time inside the spans of one name.
+
+    A configuration whose program records spans or counters of its own adds
+    their readers as new files, ``metrics/<name>.py`` with ``read(run)``,
+    and their ``per_layer`` entries in ``BENCHMARK.json``; no harness file
+    changes. A reader that finds nothing to read returns None and its
+    metric is left out of the line."""
 
     cfg: dict
     traffic: dict
@@ -35,6 +52,8 @@ class TracedRun:
     steps: int = 0                         # train steps in the slice
     requests: List = field(default_factory=list)   # (t0, t1, patches)
     least_unit_s: float = 0.0              # a train step or a patch
+    program_spans: List = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
 
     @property
     def slice_s(self) -> float:
@@ -43,6 +62,13 @@ class TracedRun:
     @property
     def busy_s(self) -> float:
         return trace.busy_ns(self.events, self.t0, self.t1) / 1e9
+
+    @property
+    def graph_captures(self) -> int:
+        """CUDA-graph captures inside the slice (the ``*.graph_captures``
+        counters): a capture there would spoil what the readers read."""
+        return sum(v for k, v in self.counters.items()
+                   if k.endswith(".graph_captures"))
 
 
 def read_per_layer(cell: manifest.Cell, run: TracedRun) -> Dict[str, dict]:

@@ -109,7 +109,9 @@ class Sample:
 
 def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
            tracer=None):
-    """The closed loop; returns its record."""
+    """The closed loop; returns its record. With a ``tracer`` (a
+    ``DeviceTrace``) the device and the program's spans are recorded over
+    the traced requests alone."""
     tr = cell.traffic
     cfg = cell.config
     ru_pool, mask_pool = pool
@@ -120,6 +122,7 @@ def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
     attempted = failed = patches = 0
     skip, n_traced = tr["trace_skip"], tr["trace_requests"]
     t_slice = [0, 0]
+    program = trace.ProgramTrace() if tracer is not None else None
     t_w0 = trace.now_ns()
     t_end = t_w0
     while True:
@@ -128,6 +131,7 @@ def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
         mask = mask_pool[req.offset:req.offset + req.size]
         if tracer is not None and req.index == skip:
             tracer.start()
+            program.start()
             t_slice[0] = trace.now_ns()
         attempted += 1
         a = trace.now_ns()
@@ -150,6 +154,7 @@ def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
                 traced.append((a, b, req.size))
         if tracer is not None and req.index == skip + n_traced - 1:
             t_slice[1] = trace.now_ns()
+            recording = program.stop()
             events = tracer.stop()
             tracer = None
         if (t_end - t_w0) / 1e9 >= seconds and (
@@ -159,6 +164,9 @@ def window(engine, cell: manifest.Cell, pool, seed: int, seconds: float,
                failed=failed, patches=patches, window_s=(t_end - t_w0) / 1e9,
                sample=sample, traced=traced, t_slice=t_slice)
     rec["events"] = events if t_slice[1] else []
+    rec["program_spans"] = trace.clip_spans(recording.spans, *t_slice) \
+        if t_slice[1] else []
+    rec["counters"] = recording.counters if t_slice[1] else {}
     return rec
 
 
@@ -237,14 +245,18 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     run_ = common.TracedRun(cfg=cell.config, traffic=cell.traffic, t0=t0,
                             t1=t1, events=rec["events"], spans=rec["spans"],
                             window_s=rec["window_s"],
-                            requests=rec["traced"], least_unit_s=least)
+                            requests=rec["traced"], least_unit_s=least,
+                            program_spans=rec["program_spans"],
+                            counters=rec["counters"])
     device_info["busy_s"] = run_.busy_s
     device_info["window_s"] = run_.slice_s
     extra.update(least_patch_s=least,
-                 classes=trace.by_class(trace.clip(rec["events"], t0, t1)))
+                 classes=trace.by_class(trace.clip(rec["events"], t0, t1)),
+                 graph_captures_in_slice=run_.graph_captures)
     return dict(correct=correct, attempted=rec["attempted"],
                 failed=rec["failed"],
                 metrics=common.read_per_layer(cell, run_), device=device_info,
                 checks=checks,
-                breakdown=trace.breakdown(rec["events"], rec["spans"], t0, t1),
+                breakdown=trace.breakdown(rec["events"], rec["spans"], t0, t1,
+                                          rec["program_spans"]),
                 extra=extra)

@@ -124,11 +124,12 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
             tracer.start()
             tracer.stop()
             tracer = trace.DeviceTrace()
+            program = trace.ProgramTrace()
         common.free_device(device)
         common.settle()
         t_w0 = trace.now_ns()
         setup_s = (t_w0 - t_start) / 1e9
-        spans, events = [], []
+        spans, events, recording = [], [], None
         skip, n_traced = traffic["trace_skip"], traffic["trace_epochs"]
         t_slice = [0, 0]
         steps_per_epoch = train.steps
@@ -137,6 +138,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
         while True:
             if tracer is not None and epoch == skip:
                 tracer.start()
+                program.start()
                 t_slice[0] = trace.now_ns()
             a = trace.now_ns()
             attempted += steps_per_epoch
@@ -153,6 +155,7 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
             epoch += 1
             if tracer is not None and epoch == skip + n_traced:
                 t_slice[1] = trace.now_ns()
+                recording = program.stop()
                 events = tracer.stop()
                 tracer = None
             if failed or ((c - t_w0) / 1e9 >= seconds and (
@@ -181,15 +184,21 @@ def run(cell: manifest.Cell, seed: int, seconds: float, traced: bool,
     least = peaks.least_seconds(flops.train_step_flops(
         cell.reference, cell.config, bs))
     traced_steps = n_traced * steps_per_epoch
+    program_spans = trace.clip_spans(recording.spans, t0, t1) \
+        if recording else []
     run_ = common.TracedRun(cfg=cell.config, traffic=traffic, t0=t0, t1=t1,
                             events=events, spans=spans, window_s=window_s,
-                            steps=traced_steps, least_unit_s=least)
+                            steps=traced_steps, least_unit_s=least,
+                            program_spans=program_spans,
+                            counters=recording.counters if recording else {})
     device_info["busy_s"] = run_.busy_s
     device_info["window_s"] = run_.slice_s
     return dict(correct=correct, attempted=attempted, failed=failed,
                 metrics=common.read_per_layer(cell, run_), device=device_info,
                 checks=checks,
-                breakdown=trace.breakdown(events, spans, t0, t1),
+                breakdown=trace.breakdown(events, spans, t0, t1,
+                                          program_spans),
                 extra={"numbers": numbers, "least_step_s": least,
                        "classes": trace.by_class(
-                           trace.clip(events, t0, t1))})
+                           trace.clip(events, t0, t1)),
+                       "graph_captures_in_slice": run_.graph_captures})
