@@ -5,8 +5,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. require CUDA and print the card's name and power limit;
-2. build the three kernels (``vae_gan_mark_tpu_torch/csrc/gru_fwd.cu``,
-   ``gru_bwd.cu``, ``conv3x3.cu``) with ``nvcc`` for ``sm_90a`` from the
+2. build the four kernel libraries (``vae_gan_mark_tpu_torch/csrc/gru_fwd.cu``,
+   ``gru_bwd.cu``, ``conv3x3.cu``, ``resize_bilinear.cu``) with ``nvcc`` for
+   ``sm_90a`` from the
    checkout's sources, one ``nvcc`` each, all at once, and print each one's
    registers, spills and any wgmma serialisation warning;
 3. GRU forward: hold the kernel against its plain PyTorch version at L=60,
@@ -30,6 +31,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    shapes (counting launches), and time it there against the plain
    version, cuDNN's bf16 channels-last ``F.conv2d`` and the bound (TFLOP/s,
    bound/ms, kernel/cuDNN);
+5b. the bilinear resize (``resize_bilinear.cu``): the forward against
+   ``F.interpolate`` (at most one float32 ulp; how many values differ is
+   printed) and the gather backward against ATen's in float64 on the CPU,
+   run twice bit for bit, at every shape the port resizes at full width
+   and two off its path; times at the main path's shapes against the
+   library's, the bound (bytes) and the plain version on the CPU; the
+   kernels the library runs; 4 + 4 launches a full-width v2 and oldv train
+   step and 4 a val batch; a full-width float32 v2 and oldv step run twice
+   with cuDNN's deterministic algorithms, bit for bit. Phases 6, 8 and 9
+   count the resize's launches on the main path beside the GRU's: 4 a
+   served chunk, 4 + 4 a train step and 4 a val batch, graph replays
+   included;
 6. serve the v2 generator at full width (448x64) through
    ``InferenceEngine(device="cuda")`` with seeded random weights: requests
    of 16, 5 and 33 patches and one full-image render, counting GRU kernel
@@ -609,6 +622,242 @@ def phase_conv(conv_probe) -> dict:
     return dict(checks=checks, launches=launches, shapes=rows)
 
 
+# Resize (csrc/resize_bilinear.cu) against F.interpolate on the card on a
+# contiguous copy of the input (PyTorch's NCHW kernel, the one the port
+# called; its channels-last kernel rounds otherwise): the forward within one
+# float32 ulp of each value (how many differ at all is printed), the input
+# gradient within RESIZE_GRAD_RTOL of float64 on the CPU, scaled by the same
+# gradient of |dy| (the float32 rounding of at most ~34 weighted terms), and
+# two float32 backward runs bit for bit.
+RESIZE_GRAD_RTOL = 2e-6
+# (name, input shape, output (h, w), layout): every call the port makes on
+# the card at full width (v2's transposed text map lies in NCHW order at
+# batch 16: the pooling's product writes it so; at the serving engine's
+# batch 1 it is channels-last), and three off its path, one of them a
+# permuted view.
+RESIZE_SHAPES = (
+    [(f"v2_w{w}", (16, 512, 1, 28), (1, w), "nchw")
+     for w in (56, 112, 224, 448)]
+    + [(f"oldv_w{w}", (16, 512, 4, 28), (4, w), "nchw")
+       for w in (112, 224, 448)]
+    + [("oldv_strip", (16, 512, 4, 28), (1, 56), "nchw"),
+       ("v2_serve_w448", (1, 512, 1, 28), (1, 448), "channels_last"),
+       ("both_axes", (2, 3, 1, 28), (8, 56), "nchw"),
+       ("down", (2, 3, 6, 10), (3, 4), "nchw"),
+       ("down_permuted", (2, 3, 6, 10), (3, 4), "permuted")])
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 units in the last place, elementwise (int64)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def resize_input(gen, shape, layout: str) -> torch.Tensor:
+    """NCHW memory, a permuted view of (N, W, H, C) memory, or channels-last
+    memory (N, H, W, C)."""
+    n, c, h, w = shape
+    if layout == "permuted":
+        return torch.randn(n, w, h, c, device="cuda",
+                           generator=gen).permute(0, 3, 2, 1)
+    if layout == "channels_last":
+        return torch.randn(n, h, w, c, device="cuda",
+                           generator=gen).permute(0, 3, 1, 2)
+    return torch.randn(shape, device="cuda", generator=gen)
+
+
+def upsample_backward(dy: torch.Tensor, in_shape) -> torch.Tensor:
+    return torch.ops.aten.upsample_bilinear2d_backward(
+        dy, list(dy.shape[2:]), list(in_shape), False)
+
+
+def resize_counts() -> tuple:
+    """The resize kernels' launch counts (forward, backward)."""
+    from vae_gan_mark_tpu_torch.ops import resize
+    return (resize.RESIZE_KERNEL.launches,
+            resize.RESIZE_BACKWARD_KERNEL.launches)
+
+
+def zero_resize_counts() -> None:
+    from vae_gan_mark_tpu_torch.ops import resize
+    resize.RESIZE_KERNEL.launches = resize.RESIZE_BACKWARD_KERNEL.launches = 0
+
+
+def resize_step_launches(resize, variant: str) -> dict:
+    """Resize launches over one full-width bf16 train step at batch 16 and
+    one val batch, after a warm-up step."""
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.train import build_eval_step, build_train_step
+
+    cfg = get_config(variant, compute_dtype="bfloat16")
+    state, vgg = make_trainer(cfg, train_weights(cfg), "cuda")
+    step = build_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = train_batch(cfg, BATCH, 900, "cuda")
+    state, _ = step(state, vgg, batch, gen, 1e-3)
+    counts = {}
+    for name, fn in (("train_step", lambda: step(state, vgg, batch, gen,
+                                                 1e-3)),
+                     ("val_batch", lambda: build_eval_step(cfg)(
+                         state, vgg, batch, gen, 1e-3))):
+        torch.cuda.synchronize()
+        before = (resize.RESIZE_KERNEL.launches,
+                  resize.RESIZE_BACKWARD_KERNEL.launches)
+        fn()
+        torch.cuda.synchronize()
+        counts[name] = (resize.RESIZE_KERNEL.launches - before[0],
+                        resize.RESIZE_BACKWARD_KERNEL.launches - before[1])
+    check(counts == dict(train_step=(4, 4), val_batch=(4, 0)),
+          f"{variant} resize launches {counts}, expected 4 + 4 a train step "
+          f"and 4 a val batch")
+    print(f"[resize] {variant} full width bs={BATCH}: launches (forward, "
+          f"backward) {counts}", flush=True)
+    return counts
+
+
+def float32_step_repeats(variant: str) -> dict:
+    """One full-width float32 train step at batch 16 run twice from the same
+    weights, batch and generator seed, with cuDNN's deterministic
+    algorithms: the tensors that differ and the largest difference of any
+    parameter, buffer or Adam moment (0 when the step repeats bit for
+    bit)."""
+    from vae_gan_mark_tpu_torch.config import get_config
+    from vae_gan_mark_tpu_torch.train import build_train_step
+
+    cfg = get_config(variant, compute_dtype="float32")
+    weights = train_weights(cfg)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            state, vgg = make_trainer(cfg, weights, "cuda")
+            state, _ = build_train_step(cfg)(
+                state, vgg, train_batch(cfg, BATCH, 901, "cuda"),
+                torch.Generator(device="cuda").manual_seed(0), 1e-3)
+            runs.append(state_tensors(state))
+            del state, vgg
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    differ = sorted(k for k in runs[0] if not torch.equal(runs[0][k],
+                                                           runs[1][k]))
+    diff = max_abs_diff(*runs)
+    print(f"[resize] {variant} float32 step twice (cudnn.deterministic): "
+          f"{len(differ)} of {len(runs[0])} tensors differ, max abs "
+          f"{diff:.3e}; first: {differ[:6]}", flush=True)
+    check(not differ, f"{variant} float32 step does not repeat: {differ}")
+    return dict(tensors=len(runs[0]), differ=differ, max_abs_diff=diff)
+
+
+def phase_resize(resize) -> dict:
+    """The resize kernels against F.interpolate and its backward at every
+    shape of RESIZE_SHAPES; their times at the main path's shapes against
+    the library's, the bound (bytes) and the plain version on the host's
+    CPU; the launches of a full-width train step and val batch of v2 and
+    oldv; whether a float32 step repeats bit for bit."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name, shape, (oh, ow), layout in RESIZE_SHAPES:
+        x = resize_input(gen, shape, layout)
+        y = resize.resize_bilinear(x, oh, ow)
+        check(y.stride() == F.interpolate(x, size=(oh, ow), mode="bilinear",
+                                          align_corners=False).stride(),
+              f"resize {name}: strides {y.stride()} are not F.interpolate's")
+        ref = F.interpolate(x.contiguous(), size=(oh, ow), mode="bilinear",
+                            align_corners=False)
+        ulps = ulp_distance(y, ref)
+        dy = torch.randn(y.shape, device="cuda", generator=gen)
+        dx = resize.resize_bilinear_backward(dy, *shape[2:])
+        again = resize.resize_bilinear_backward(dy, *shape[2:])
+        torch.cuda.synchronize()
+        dy64 = dy.double().cpu()
+        ref64 = upsample_backward(dy64, shape)
+        scale64 = upsample_backward(dy64.abs(), shape)
+        err = ((dx.double().cpu() - ref64).abs()
+               / scale64.clamp_min(1e-300)).max().item()
+        row = dict(shape=list(shape), out=[oh, ow], layout=layout,
+                   max_ulps=int(ulps.max()), unequal=int((ulps > 0).sum()),
+                   max_abs_diff=(y - ref).abs().max().item(),
+                   outputs=y.numel(), grad_rel_err=err,
+                   backward_repeats=torch.equal(dx, again))
+        check(row["max_ulps"] <= 1, f"resize {name}: {row['max_ulps']} ulps "
+                                    f"from F.interpolate")
+        check(err <= RESIZE_GRAD_RTOL, f"resize {name}: gradient {err:.3e} "
+                                       f"from float64")
+        check(row["backward_repeats"], f"resize {name}: two backward runs "
+                                       f"differ")
+        if shape[0] == BATCH:                    # the main path's shapes
+            # Either way one tensor of each size is read and the other
+            # written: x and y forward, dy and dx backward.
+            nbytes = 4 * (x.numel() + y.numel())
+            row.update(
+                ms=device_time_ms(lambda: resize.resize_bilinear(x, oh, ow),
+                                  200),
+                backward_ms=device_time_ms(
+                    lambda: resize.resize_bilinear_backward(dy, *shape[2:]),
+                    200),
+                library_ms=device_time_ms(lambda: F.interpolate(
+                    x, size=(oh, ow), mode="bilinear", align_corners=False),
+                    20),
+                library_backward_ms=device_time_ms(
+                    lambda: upsample_backward(dy, shape), 20),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            x_cpu, dy_cpu = x.cpu(), dy.cpu()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                F.interpolate(x_cpu, size=(oh, ow), mode="bilinear",
+                              align_corners=False)
+            row["plain_cpu_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+            t0 = time.perf_counter()
+            for _ in range(3):
+                upsample_backward(dy_cpu, shape)
+            row["plain_backward_cpu_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        rows[name] = row
+        print(f"[resize] {name} {tuple(shape)} -> ({oh}, {ow}): max "
+              f"{row['max_ulps']} ulp from F.interpolate ({row['unequal']} "
+              f"of {row['outputs']} differ), gradient {err:.2e} of float64 "
+              f"(limit {RESIZE_GRAD_RTOL}), backward repeats "
+              f"{row['backward_repeats']}" + (
+                  f"; forward {row['ms'] * 1e3:.2f} us, backward "
+                  f"{row['backward_ms'] * 1e3:.2f} us, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us (bytes); F.interpolate "
+                  f"{row['library_ms'] * 1e3:.1f} us, its backward "
+                  f"{row['library_backward_ms'] * 1e3:.1f} us; plain on the "
+                  f"CPU {row['plain_cpu_ms']:.2f} ms, its backward "
+                  f"{row['plain_backward_cpu_ms']:.2f} ms" if "ms" in row
+                  else ""),
+              flush=True)
+
+    # Which kernel the library runs at v2's largest call.
+    x = resize_input(gen, (BATCH, 512, 1, 28), "nchw")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.interpolate(x, size=(1, 448), mode="bilinear", align_corners=False)
+        torch.cuda.synchronize()
+    library_kernels = sorted({e.key[:80] for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA})
+    print(f"[resize] F.interpolate at v2 (16, 512, 1, 28) -> (1, 448) runs "
+          f"{library_kernels}", flush=True)
+    per_step = {v: sum(rows[n][k] for n in rows
+                       if n.startswith(v + "_") and "ms" in rows[n]
+                       for k in ("ms", "backward_ms"))
+                for v in ("v2", "oldv")}
+    print(f"[resize] kernels a train step (forward + backward, every call): "
+          f"v2 {per_step['v2'] * 1e3:.1f} us, oldv "
+          f"{per_step['oldv'] * 1e3:.1f} us", flush=True)
+    return dict(shapes=rows, library_kernels=library_kernels,
+                ms_per_step=per_step,
+                step_launches={v: resize_step_launches(resize, v)
+                               for v in ("v2", "oldv")},
+                float32_step={v: float32_step_repeats(v)
+                              for v in ("v2", "oldv")})
+
+
 def make_requests(cfg, n: int, seed: int):
     rng = np.random.default_rng(seed)
     ru = rng.uniform(0, 1, (n, cfg.patch_h, cfg.patch_w, 3)).astype(np.float32)
@@ -650,10 +899,11 @@ def phase_serve(gru, card: str) -> dict:
 
     # The serving path: counts start at 0 here and are read right after.
     gru.KERNEL.launches = 0
+    zero_resize_counts()
     outs = {n: engine.generate(*requests[n]) for n in (16, 5, 33)}
     rendered = engine.render(image, mask_image, quad, "NEW COLLECTION")
     torch.cuda.synchronize()
-    launches = gru.KERNEL.launches
+    launches, resized = gru.KERNEL.launches, resize_counts()
     chunks = sum(-(-n // BATCH) for n in (16, 5, 33)) + 1
     for n, out in outs.items():
         check_patches(out, n, cfg, f"generate({n})")
@@ -661,8 +911,12 @@ def phase_serve(gru, card: str) -> dict:
           bool(np.all(np.isfinite(rendered))), "render: bad output")
     check(launches == 2 * chunks,
           f"GRU kernel launches {launches}, expected 2 x {chunks} chunks")
+    check(resized == (4 * chunks, 0),
+          f"resize launches {resized}, expected 4 x {chunks} chunks and no "
+          f"backward")
     print(f"[serve] generate 16/5/33 + render: {chunks} chunks, "
-          f"{launches} GRU kernel launches", flush=True)
+          f"{launches} GRU kernel launches, resize launches {resized}",
+          flush=True)
 
     # Same engine on the CPU with the same seed, hence the same eps.
     cpu_engine = InferenceEngine(cfg, state_dict, batch_size=BATCH, seed=0,
@@ -708,7 +962,8 @@ def phase_serve(gru, card: str) -> dict:
     profile = {name: profile_call(
         lambda eng=eng: eng.generate(*requests[16]), f"{name} generate(16)",
         batch_ms[name]) for name, eng in engines.items()}
-    return dict(launches=launches, chunks=chunks, device_max_abs_err=device_err,
+    return dict(launches=launches, resize_launches=resized, chunks=chunks,
+                device_max_abs_err=device_err,
                 bf16_max_abs=bf16_max, bf16_mean_abs=bf16_mean,
                 img_per_s=throughput, profile=profile)
 
@@ -778,6 +1033,7 @@ def run_train_path(gru, cfg, weights, name: str) -> dict:
     before = watched_buffers(state)
     torch.cuda.synchronize()
     gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+    zero_resize_counts()
     t0 = time.perf_counter()
     history = []
     for batch in batches:
@@ -787,10 +1043,14 @@ def run_train_path(gru, cfg, weights, name: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = dict(forward=gru.KERNEL.launches,
                     backward=gru.BACKWARD_KERNEL.launches)
+    resized = resize_counts()
     check(launches == dict(forward=2 * TRAIN_STEPS,
                            backward=2 * TRAIN_STEPS),
           f"{name} train: GRU launches {launches}, expected 2 + 2 per step "
           f"over {TRAIN_STEPS} steps")
+    check(resized == (4 * TRAIN_STEPS, 4 * TRAIN_STEPS),
+          f"{name} train: resize launches {resized}, expected 4 + 4 per "
+          f"step over {TRAIN_STEPS} steps")
     history = [{k: float(v) for k, v in m.items()} for m in history]
     check(all(np.isfinite(v) for m in history for v in m.values()),
           f"{name} train: non-finite losses {history}")
@@ -800,11 +1060,13 @@ def run_train_path(gru, cfg, weights, name: str) -> dict:
              for kind in ("running_mean", "running_var", "weight_u")}
     check(all(moved.values()), f"{name} train: buffers did not move {moved}")
     print(f"[train] {name} {TRAIN_STEPS} steps bs={BATCH}: {seconds:.2f} s "
-          f"(first step included), GRU launches {launches}, last losses "
+          f"(first step included), GRU launches {launches}, resize "
+          f"launches {resized}, last losses "
           + " ".join(f"{k}={v:.4f}" for k, v in history[-1].items()),
           flush=True)
     return dict(state=state, vgg=vgg, step=step, gen=gen,
-                result=dict(launches=launches, losses=history,
+                result=dict(launches=launches, resize_launches=resized,
+                            losses=history,
                             seconds=seconds, buffers_moved=moved))
 
 
@@ -1127,17 +1389,24 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         runs = epochs - trainer.epoch
         torch.cuda.synchronize()
         gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        zero_resize_counts()
         t = time.perf_counter()
         trainer.fit(epochs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = dict(forward=gru.KERNEL.launches,
                         backward=gru.BACKWARD_KERNEL.launches)
+        resized = resize_counts()
         expected = dict(forward=runs * (2 * steps + 2 * val_batches),
                         backward=runs * 2 * steps)
         check(launches == expected,
               f"{what}: GRU launches {launches}, expected {expected} (2 + 2 "
               f"per train step, 2 forward per val batch)")
+        expected_resize = (runs * 4 * (steps + val_batches), runs * 4 * steps)
+        check(resized == expected_resize,
+              f"{what}: resize launches {resized}, expected "
+              f"{expected_resize} (4 + 4 per train step, 4 forward per val "
+              f"batch)")
         records = read_records(trainer.workdir)[-runs:]
         for rec in records:
             ep = int(rec["epoch"])
@@ -1150,8 +1419,9 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
                   + " ".join(f"{k}={v:.4f}" for k, v in rec.items()
                              if k.startswith("val/")), flush=True)
         print(f"[trainer] {what}: fit({epochs}) in {seconds:.1f} s, GRU "
-              f"launches {launches}", flush=True)
-        return dict(seconds=seconds, launches=launches, records=records,
+              f"launches {launches}, resize launches {resized}", flush=True)
+        return dict(seconds=seconds, launches=launches,
+                    resize_launches=resized, records=records,
                     timings=trainer.timings)
 
     def step_twice(trainer, batch, kl_w: float) -> float:
@@ -1298,11 +1568,15 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         requests = make_requests(cfg, BATCH, seed=21)
         torch.cuda.synchronize()
         gru.KERNEL.launches = 0
+        zero_resize_counts()
         patches = engine.generate(*requests)
         torch.cuda.synchronize()
-        serve_launches = gru.KERNEL.launches
+        serve_launches, serve_resized = gru.KERNEL.launches, resize_counts()
         check(serve_launches == 2, f"from_checkpoint generate(16): "
                                    f"{serve_launches} GRU launches, expected 2")
+        check(serve_resized == (4, 0), f"from_checkpoint generate(16): "
+                                       f"resize launches {serve_resized}, "
+                                       f"expected (4, 0)")
         check_patches(patches, BATCH, cfg, "from_checkpoint generate(16)")
         same = np.array_equal(patches, reference.generate(*requests))
         check(same, "from_checkpoint patches differ from the generator B "
@@ -1318,7 +1592,8 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         print(f"[trainer] from_checkpoint(best_model) generate(16): equal to "
               f"the in-memory generator bit for bit, {serve_launches} GRU "
               f"launches; one full image rendered", flush=True)
-        result["serve"] = dict(launches=serve_launches, equal=same)
+        result["serve"] = dict(launches=serve_launches,
+                               resize_launches=serve_resized, equal=same)
         det_train_s = run_b.timings[3]["train_s"]
         del engine, reference, run_b
         torch.cuda.empty_cache()
@@ -1471,12 +1746,11 @@ def phase_graph_probe(gru) -> dict:
 
 
 def determinism_spreads(gru_fwd_bwd, batch, repeats: int = 10) -> dict:
-    """Why float32 steps on the card do not repeat bit for bit and bf16
-    ones do: the largest difference over ``repeats`` runs of the same
-    inputs, for the GRU kernels (forward and backward) and for bilinear
-    upsampling's backward on the FiLM text map (float32 atomic adds; its
-    incoming gradient in float32 and as bf16 values)."""
-    import torch.nn.functional as F
+    """Whether the card's kernels repeat: the largest difference over
+    ``repeats`` runs of the same inputs, for the GRU kernels (forward and
+    backward) and for the resize's gather backward on the FiLM text map
+    (``ops/resize.py``)."""
+    from vae_gan_mark_tpu_torch.ops.resize import interpolate_bilinear
 
     def spread(fn):
         first = [t.clone() for t in fn()]
@@ -1489,23 +1763,16 @@ def determinism_spreads(gru_fwd_bwd, batch, repeats: int = 10) -> dict:
                     requires_grad=True)
     grad = torch.randn(BATCH, 512, 1, 448, device="cuda", generator=gen)
 
-    def upsample_backward(g):
-        y = F.interpolate(x, size=(1, 448), mode="bilinear",
-                          align_corners=False)
-        return torch.autograd.grad(y, [x], g)
-
     result = dict(
         gru=spread(lambda: gru_fwd_bwd(batch)),
-        upsample_backward_f32=spread(lambda: upsample_backward(grad)),
-        upsample_backward_bf16_values=spread(
-            lambda: upsample_backward(grad.bfloat16().float())))
+        resize_backward=spread(lambda: torch.autograd.grad(
+            interpolate_bilinear(x, 1, 448), [x], grad)))
     print(f"[graphs] the same inputs {repeats + 1} times: the GRU kernels "
-          f"differ by {result['gru']:.3e}; bilinear upsampling's backward "
+          f"differ by {result['gru']:.3e}; the resize's backward "
           f"(16, 512, 1, 28) <- 448 columns by "
-          f"{result['upsample_backward_f32']:.3e} with a float32 gradient "
-          f"and {result['upsample_backward_bf16_values']:.3e} with bf16 "
-          f"values", flush=True)
-    check(result["gru"] == 0.0, f"the GRU kernels do not repeat: {result}")
+          f"{result['resize_backward']:.3e}", flush=True)
+    check(result["gru"] == 0.0 and result["resize_backward"] == 0.0,
+          f"the port's kernels do not repeat: {result}")
     return result
 
 
@@ -1543,14 +1810,18 @@ def phase_multi_step(gru, card: str) -> dict:
         replayed, multi = copy.deepcopy(saved), build_multi_train_step(cfg)
         torch.cuda.synchronize()
         gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        zero_resize_counts()
         sums_g = None
         for i in range(0, 8, MULTI_K):
             replayed, sums_g = multi(replayed, vgg, batches[i:i + MULTI_K],
                                      0, 1e-3, sums_g)
         torch.cuda.synchronize()
         launches = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        resized = resize_counts()
         check(launches == (16, 16), f"8 replayed steps: GRU launches "
                                     f"{launches}, expected (16, 16)")
+        check(resized == (32, 32), f"8 replayed steps: resize launches "
+                                   f"{resized}, expected (32, 32)")
         a, b = state_tensors(eager), state_tensors(replayed)
         check(a.keys() == b.keys(), "replayed state has other tensors")
         state_diff = max_abs_diff(a, b)
@@ -1560,7 +1831,8 @@ def phase_multi_step(gru, card: str) -> dict:
               f"deterministic: eager against 2 groups of {MULTI_K} graph "
               f"replays: G, D, BN statistics, u, both Adams differ by "
               f"{state_diff:.3e}, the summed metrics by {metric_diff:.3e} "
-              f"(limit 0: bit for bit); GRU launches {launches}",
+              f"(limit 0: bit for bit); GRU launches {launches}, resize "
+              f"launches {resized}",
               flush=True)
         check(state_diff == 0.0 and metric_diff == 0.0
               and eager.step == replayed.step,
@@ -1592,7 +1864,8 @@ def phase_multi_step(gru, card: str) -> dict:
         result.update(state_max_abs_diff=state_diff,
                       metric_max_abs_diff=metric_diff,
                       eval_max_abs_diff=max(eval_diff, fake_diff),
-                      launches_8_steps=launches)
+                      launches_8_steps=launches,
+                      resize_launches_8_steps=resized)
         del multi_eval, got, fake0, ref
     finally:
         torch.backends.cudnn.deterministic = False
@@ -1722,23 +1995,31 @@ def phase_multi_step_driver(gru) -> dict:
         runs = epochs - trainer.epoch
         torch.cuda.synchronize()
         gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        zero_resize_counts()
         t = time.perf_counter()
         trainer.fit(epochs)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = dict(forward=gru.KERNEL.launches,
                         backward=gru.BACKWARD_KERNEL.launches)
+        resized = resize_counts()
         expected = dict(forward=runs * (2 * steps + 2 * val_batches),
                         backward=runs * 2 * steps)
         check(launches == expected, f"{what}: GRU launches {launches}, "
                                     f"expected {expected}")
+        expected_resize = (runs * 4 * (steps + val_batches), runs * 4 * steps)
+        check(resized == expected_resize, f"{what}: resize launches "
+                                          f"{resized}, expected "
+                                          f"{expected_resize}")
         rates = [r["train/images_per_sec"]
                  for r in read_records(trainer.workdir)[-runs:]]
         print(f"[graphs] {what}: fit({epochs}) in {seconds:.1f} s, GRU "
               f"launches {launches} (2 + 2 a train step, 2 a val batch, "
-              f"replays included), train/images_per_sec "
-              f"{[round(r, 1) for r in rates]}", flush=True)
-        return dict(seconds=seconds, launches=launches, img_per_s=rates)
+              f"replays included), resize launches {resized} (4 + 4, 4), "
+              f"train/images_per_sec {[round(r, 1) for r in rates]}",
+              flush=True)
+        return dict(seconds=seconds, launches=launches,
+                    resize_launches=resized, img_per_s=rates)
 
     shutil.rmtree(RUNS_DIR, ignore_errors=True)
     result = {}
@@ -1774,18 +2055,23 @@ def phase_multi_step_driver(gru) -> dict:
         batches = [run_b._put(b) for b in list(train_data(3))[:MULTI_K]]
         torch.cuda.synchronize()
         gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+        zero_resize_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run_b.state, _ = run_b.multi_train_step(
                 run_b.state, run_b.vgg, batches, 0, 1e-3)
             torch.cuda.synchronize()
-        counted = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches)
+        counted = (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches,
+                   *resize_counts())
         traced = [sum(e.count for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA and name in e.key)
-                  for name in ("gru_fwd_kernel", "gru_bwd_kernel")]
-        print(f"[graphs] one group of {MULTI_K} replays: counts "
-              f"{counted}, kernels in its profile {tuple(traced)}",
-              flush=True)
-        check(counted == tuple(traced) == (2 * MULTI_K, 2 * MULTI_K),
+                  for name in ("gru_fwd_kernel", "gru_bwd_kernel",
+                               "upsample_bilinear_fwd_kernel",
+                               "upsample_bilinear_bwd_kernel")]
+        print(f"[graphs] one group of {MULTI_K} replays: counts (GRU "
+              f"forward, backward, resize forward, backward) {counted}, "
+              f"kernels in its profile {tuple(traced)}", flush=True)
+        check(counted == tuple(traced) == (2 * MULTI_K, 2 * MULTI_K,
+                                           4 * MULTI_K, 4 * MULTI_K),
               f"replay counts {counted} against profile {traced}")
         result["profile_cross_check"] = dict(counted=counted, traced=traced)
         del run_b, batches
@@ -2967,7 +3253,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from vae_gan_mark_tpu_torch.ops import conv_probe, gru
+    from vae_gan_mark_tpu_torch.ops import conv_probe, gru, resize
 
     card = card_line()
     print(f"[card] {card}", flush=True)
@@ -2977,10 +3263,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    build = phase_build([gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL])
+    build = phase_build([gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL,
+                         resize.RESIZE_KERNEL])
     forward = phase_gru_forward(gru)
     backward = phase_gru_backward(gru)
     conv = phase_conv(conv_probe)
+    resized = phase_resize(resize)
     serve = phase_serve(gru, card)
     train = phase_train(gru, card)
     driver = phase_epoch_driver(gru, card, train["rates"])
@@ -3029,6 +3317,7 @@ def main() -> int:
     bwd_row = next(r for r in backward["rows"]
                    if r["H"] == 256 and r["B"] == BATCH)
     conv_row = conv["shapes"]["v2_full_res_64ch_f2"]
+    resize_row = resized["shapes"]["v2_w448"]
     train_launches = train["bfloat16"]["launches"]
     kernels = [
         dict(name="gru_forward", route="cuda",
@@ -3098,6 +3387,44 @@ def main() -> int:
              ms=conv_row["ms"], plain_ms=conv_row["plain_ms"],
              bound_ms=conv_row["bound_ms"], bound_by=conv_row["bound_by"],
              library_ms=conv_row["library_ms"]),
+        dict(name="upsample_bilinear_forward", route="cuda",
+             source="vae_gan_mark_tpu_torch/csrc/resize_bilinear.cu",
+             replaces=None,
+             launches=train["bfloat16"]["resize_launches"][0],
+             launches_by_path=dict(
+                 serve=serve["resize_launches"][0],
+                 train_bfloat16=train["bfloat16"]["resize_launches"][0],
+                 train_float32=train["float32"]["resize_launches"][0],
+                 epoch_driver_run_b=driver["run_b"]["resize_launches"][0],
+                 serve_from_checkpoint=driver["serve"]["resize_launches"][0],
+                 multi_step_graph_8_steps=multi["resize_launches_8_steps"][0],
+                 multi_step_run_b=multi_driver["run_b"]["resize_launches"][0],
+                 **{f"{v}_{path}": counts[0]
+                    for v, by_path in resized["step_launches"].items()
+                    for path, counts in by_path.items()}),
+             max_ulps=max(r["max_ulps"] for r in resized["shapes"].values()),
+             ms=resize_row["ms"], plain_cpu_ms=resize_row["plain_cpu_ms"],
+             bound_ms=resize_row["bound_ms"], bound_by="bytes",
+             library_ms=resize_row["library_ms"]),
+        dict(name="upsample_bilinear_backward", route="cuda",
+             source="vae_gan_mark_tpu_torch/csrc/resize_bilinear.cu",
+             replaces=None,
+             launches=train["bfloat16"]["resize_launches"][1],
+             launches_by_path=dict(
+                 train_bfloat16=train["bfloat16"]["resize_launches"][1],
+                 train_float32=train["float32"]["resize_launches"][1],
+                 epoch_driver_run_b=driver["run_b"]["resize_launches"][1],
+                 multi_step_graph_8_steps=multi["resize_launches_8_steps"][1],
+                 multi_step_run_b=multi_driver["run_b"]["resize_launches"][1],
+                 **{f"{v}_{path}": counts[1]
+                    for v, by_path in resized["step_launches"].items()
+                    for path, counts in by_path.items()}),
+             max_grad_rel_err=max(r["grad_rel_err"]
+                                  for r in resized["shapes"].values()),
+             ms=resize_row["backward_ms"],
+             plain_cpu_ms=resize_row["plain_backward_cpu_ms"],
+             bound_ms=resize_row["bound_ms"], bound_by="bytes",
+             library_ms=resize_row["library_backward_ms"]),
     ]
     seconds = time.perf_counter() - t_start
 
@@ -3105,7 +3432,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, torch=torch.__version__, seconds=seconds,
                        build=build, gru_forward=forward,
-                       gru_backward=backward, conv=conv, serve=serve,
+                       gru_backward=backward, conv=conv, resize=resized,
+                       serve=serve,
                        train=train, epoch_driver=driver,
                        multi_step=multi, multi_step_driver=multi_driver,
                        oldv=oldv, vanilla=vanilla, cond_disc=cond,

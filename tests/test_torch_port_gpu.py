@@ -385,16 +385,13 @@ def test_reseeded_graph_generator_draws_like_a_fresh_one(card):
 def test_trainer_multi_step_on_card_equals_single_steps(card, tmp_path):
     """``multi_step=4`` over 2 epochs of 8 train batches and 4 val batches
     (the first group of each kind eager, the rest graph replays) against
-    ``multi_step=1``, with cuDNN's deterministic algorithms: parameters,
-    buffers, both Adams and the records equal bit for bit; 2 + 2 GRU
-    launches per train step and 2 per val batch, replays included.
-
-    In bfloat16: there the FiLM text map's gradient reaches the bilinear
-    upsample's backward as bf16 values, whose float32 atomic sums are exact
-    in any order. In float32 they are not (``chip_smoke.py`` phase 9
-    prints the spread of that backward run twice), so float32 steps on the
-    card are not reproducible bit for bit even eagerly."""
+    ``multi_step=1``, with cuDNN's deterministic algorithms, in bfloat16,
+    the precision v2 trains in: parameters, buffers, both Adams and the
+    records equal bit for bit; 2 + 2 GRU launches and 4 + 4 resize launches
+    per train step and 2 and 4 per val batch, replays included."""
     import json
+
+    from vae_gan_mark_tpu_torch.ops import resize
 
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -405,10 +402,15 @@ def test_trainer_multi_step_on_card_equals_single_steps(card, tmp_path):
                                  val_batches=4, multi_step=k,
                                  compute_dtype="bfloat16")
             gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
+            resize.RESIZE_KERNEL.launches = 0
+            resize.RESIZE_BACKWARD_KERNEL.launches = 0
             trainer.fit(2)
             torch.cuda.synchronize()
             assert (gru.KERNEL.launches, gru.BACKWARD_KERNEL.launches) == (
                 2 * (2 * 8 + 2 * 4), 2 * 2 * 8)
+            assert (resize.RESIZE_KERNEL.launches,
+                    resize.RESIZE_BACKWARD_KERNEL.launches) == (
+                4 * (2 * 8 + 2 * 4), 4 * 2 * 8)
             state = trainer.state
             states[k] = {**{f"G.{n}": v for n, v in
                             state.generator.state_dict().items()},
@@ -701,8 +703,10 @@ def test_export_round_trip_on_card(card, tmp_path):
     """The tiny v2 generator exported on the card and served from its
     artifact against ``InferenceEngine`` on the card (atol 1e-5: one
     program, the same kernels; cuDNN may pick other algorithms), with the
-    GRU kernel launched twice a chunk inside the program."""
+    GRU kernel launched twice a chunk and the resize kernel four times (one
+    custom-op node a FiLM stage) inside the program."""
     from vae_gan_mark_tpu_torch.models import VAEGANGenerator
+    from vae_gan_mark_tpu_torch.ops import resize
     from vae_gan_mark_tpu_torch.serve.export import (
         ExportedGenerator, export_generator)
 
@@ -717,9 +721,13 @@ def test_export_round_trip_on_card(card, tmp_path):
     ru = rng.uniform(0, 1, (6, 32, 64, 3)).astype(np.float32)
     mask = rng.uniform(0, 1, (6, 32, 64, 1)).astype(np.float32)
     texts = [f"T{i}" for i in range(6)]
-    before = gru.KERNEL.launches
+    resize_op = getattr(torch.ops, resize.NAMESPACE).resize_bilinear.default
+    assert [n.target for n in art.program.graph.nodes
+            if n.op == "call_function"].count(resize_op) == 4
+    before = gru.KERNEL.launches, resize.RESIZE_KERNEL.launches
     got = art.generate(ru, mask, texts, seed=2)
-    assert gru.KERNEL.launches == before + 4        # 2 chunks
+    assert (gru.KERNEL.launches, resize.RESIZE_KERNEL.launches) == (
+        before[0] + 4, before[1] + 8)               # 2 chunks
     want = InferenceEngine(cfg, generator, batch_size=4, seed=2,
                            device=card).generate(ru, mask, texts)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
@@ -822,9 +830,9 @@ def test_model_axis_gather_over_gloo_on_cuda_tensors(card, tmp_path):
 
 def test_model_axis_whole_leaves_stay_equal_on_card(card, tmp_path):
     """Four processes on the card over gloo, data 2 x model 2, float32,
-    both rates, cuDNN's default algorithms (the bilinear upsampling's
-    float32 backward adds with atomics: the model ranks' gradients differ
-    in rounding), three steps of v2 at the tiny geometry with the BiGRU's
+    both rates, cuDNN's default algorithms (with them a float32 step does
+    not repeat bit for bit: the model ranks' gradients differ in
+    rounding), three steps of v2 at the tiny geometry with the BiGRU's
     weights, FiLM's predictor and the widest convs partitioned
     (``kernel_min_ch`` 64): the model ranks of each data index still hold
     G and D equal bit for bit, the blocks moved, and every process
@@ -860,3 +868,246 @@ def test_model_axis_whole_leaves_stay_equal_on_card(card, tmp_path):
         for key in got["train"]["blocks"]:
             assert not torch.equal(got["train"]["g"][key], g_sd[key]), key
         assert got["train"]["gru_launches"] == (6, 6)
+
+
+# ------------------------------------------------------------------ resize
+# (input shape, output (h, w), layout): every resize the port makes on the
+# card at full width (v2's four FiLM stages, each also on a permuted view and
+# on a channels-last one, the layout of the serving engine's batch-1 text
+# map; oldv's three strips and its decoder strip), and three off its path:
+# both axes up (the naive FiLM), both down, and both down on a permuted
+# view.
+RESIZE_CASES = (
+    [((16, 512, 1, 28), (1, w), layout) for w in (56, 112, 224, 448)
+     for layout in ("nchw", "permuted", "channels_last")]
+    + [((16, 512, 4, 28), (4, w), "nchw") for w in (112, 224, 448)]
+    + [((16, 512, 4, 28), (1, 56), "nchw"), ((2, 3, 1, 28), (8, 56), "nchw"),
+       ((2, 3, 6, 10), (3, 4), "nchw"), ((2, 3, 6, 10), (3, 4), "permuted")])
+
+
+def _resize_input(card, shape, layout, seed=0):
+    """An NCHW tensor held in NCHW memory, as a permuted view of (N, W, H,
+    C) memory, or in channels-last memory (N, H, W, C)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    n, c, h, w = shape
+    if layout == "permuted":
+        return torch.randn(n, w, h, c, device=card,
+                           generator=gen).permute(0, 3, 2, 1)
+    if layout == "channels_last":
+        return torch.randn(n, h, w, c, device=card,
+                           generator=gen).permute(0, 3, 1, 2)
+    return torch.randn(shape, device=card, generator=gen)
+
+
+def _ordered_bits(t):
+    bits = t.contiguous().view(torch.int32).long()
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _upsample_backward(grad, in_shape):
+    return torch.ops.aten.upsample_bilinear2d_backward(
+        grad, list(grad.shape[2:]), list(in_shape), False)
+
+
+@pytest.mark.parametrize("shape,out,layout", RESIZE_CASES)
+def test_resize_kernel_matches_f_interpolate(card, shape, out, layout):
+    """The forward kernel against ``F.interpolate`` on the card, within one
+    float32 ulp of each value (the two compile PyTorch's source-index
+    arithmetic and tap order separately), in the memory format
+    ``F.interpolate`` gives the input, and one launch a call. The values
+    come from the library on a contiguous copy: that is its NCHW kernel,
+    the one the port called at batch 16; for channels-last it runs another
+    kernel whose multiply-adds round otherwise, which moves outputs near
+    zero by many ulps."""
+    from vae_gan_mark_tpu_torch.ops import resize
+
+    x = _resize_input(card, shape, layout)
+    before = resize.RESIZE_KERNEL.launches
+    got = resize.interpolate_bilinear(x, *out)
+    torch.cuda.synchronize()
+    assert resize.RESIZE_KERNEL.launches == before + 1
+    interpolate = torch.nn.functional.interpolate
+    assert got.stride() == interpolate(x, size=out, mode="bilinear",
+                                       align_corners=False).stride()
+    want = interpolate(x.contiguous(), size=out, mode="bilinear",
+                       align_corners=False)
+    assert got.shape == want.shape
+    assert int((_ordered_bits(got) - _ordered_bits(want)).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("shape,out,layout", RESIZE_CASES)
+def test_resize_gradient_matches_float64(card, shape, out, layout):
+    """The input gradient through ``interpolate_bilinear`` (the gather
+    kernel, one launch) against ``F.interpolate``'s in float64 on the CPU:
+    within 2e-6 of the same gradient of |grad|, the float32 rounding of at
+    most ~34 weighted terms."""
+    from vae_gan_mark_tpu_torch.ops import resize
+
+    x = _resize_input(card, shape, layout).requires_grad_()
+    y = resize.interpolate_bilinear(x, *out)
+    grad = torch.randn(y.shape, device=card,
+                       generator=torch.Generator(device=card).manual_seed(1))
+    before = resize.RESIZE_BACKWARD_KERNEL.launches
+    y.backward(grad)
+    torch.cuda.synchronize()
+    assert resize.RESIZE_BACKWARD_KERNEL.launches == before + 1
+    grad64 = grad.double().cpu()
+    want = _upsample_backward(grad64, shape)
+    scale = _upsample_backward(grad64.abs(), shape)
+    err = (x.grad.double().cpu() - want).abs()
+    assert bool((err <= 2e-6 * scale).all()), float((err / scale).max())
+
+
+@pytest.mark.parametrize("case", [9, 11, 14, 15])
+def test_resize_backward_repeats_bit_for_bit(card, case):
+    """Two float32 backward runs on one gradient give equal input gradients
+    bit for bit: the gather adds in a fixed order, with no atomics."""
+    from vae_gan_mark_tpu_torch.ops import resize
+
+    shape, out, layout = RESIZE_CASES[case]
+    grads = []
+    for _ in range(2):
+        x = _resize_input(card, shape, layout).requires_grad_()
+        y = resize.interpolate_bilinear(x, *out)
+        y.backward(torch.randn(
+            y.shape, device=card,
+            generator=torch.Generator(device=card).manual_seed(2)))
+        grads.append(x.grad)
+    assert torch.equal(*grads)
+
+
+def test_resize_captured_in_a_graph_replays_as_eager(card):
+    """A resize and its gradient captured in one CUDA graph: the capture
+    records one launch of each kernel, and replays on new inputs equal
+    eager calls bit for bit and add their launches to the counts."""
+    from vae_gan_mark_tpu_torch.ops import resize
+    from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
+
+    def inputs(seed):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        return {"ru": torch.randn(16, 28, 512, device=card, generator=gen),
+                "en": torch.randn(16, 512, 1, 448, device=card,
+                                  generator=gen)}
+
+    def fwd_bwd(batch, generator=None, kl=None):
+        x = batch["ru"].transpose(1, 2)[:, :, None, :].detach()
+        x.requires_grad_()
+        y = resize.interpolate_bilinear(x, 1, 448)
+        return [y, *torch.autograd.grad(y, [x], batch["en"])]
+
+    warm = inputs(1)
+    fwd_bwd(warm)
+    graph = CapturedStep(fwd_bwd, warm)
+    assert graph.launches == {resize.RESIZE_KERNEL: 1,
+                              resize.RESIZE_BACKWARD_KERNEL: 1}
+    for seed in (2, 3):
+        batch = inputs(seed)
+        before = (resize.RESIZE_KERNEL.launches,
+                  resize.RESIZE_BACKWARD_KERNEL.launches)
+        got = [t.clone() for t in graph.replay(batch, 0, 0.0)]
+        assert (resize.RESIZE_KERNEL.launches,
+                resize.RESIZE_BACKWARD_KERNEL.launches) == (
+            before[0] + 1, before[1] + 1)
+        for a, b in zip(got, fwd_bwd(batch)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant,overrides", [
+    ("v2", {}), ("v2", {"fast_film": False}),
+    ("oldv", {"enc_chans": (8, 16, 24)})])
+def test_resize_launches_per_train_step(card, monkeypatch, variant,
+                                        overrides):
+    """A train step launches the resize kernel 4 times and its backward 4
+    times (v2: one a FiLM stage; oldv: three FiLM strips and the decoder's
+    strip; the naive FiLM path too), an eval step 4 forward launches, and
+    no CUDA tensor reaches ``F.interpolate``."""
+    from vae_gan_mark_tpu_torch.ops import resize
+    from vae_gan_mark_tpu_torch.train import build_eval_step
+
+    cfg = get_config(variant, **{**TINY, **overrides})
+    state = create_train_state(
+        cfg, state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg),
+        discriminator_state_dict_from_jax(*random_discriminator_tree(1)),
+        device=card)
+    vgg = VGG16Features().to(card)
+    rng = np.random.default_rng(6)
+    shape = (4, cfg.patch_h, cfg.patch_w)
+    batch = batch_to_device(
+        {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+         "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+         "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(np.float32),
+         "text": rng.integers(1, cfg.vocab_size, (4, cfg.max_text_len))},
+        card)
+    step = build_train_step(cfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    state, _ = step(state, vgg, batch, gen, 1e-3)    # device constants
+    interpolate = torch.nn.functional.interpolate
+
+    def cpu_only(x, *args, **kwargs):
+        assert x.device.type == "cpu", "a CUDA tensor reached F.interpolate"
+        return interpolate(x, *args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "interpolate", cpu_only)
+    counts = []
+    for run in (lambda: step(state, vgg, batch, gen, 1e-3),
+                lambda: build_eval_step(cfg)(state, vgg, batch, gen, 1e-3)):
+        before = (resize.RESIZE_KERNEL.launches,
+                  resize.RESIZE_BACKWARD_KERNEL.launches)
+        run()
+        torch.cuda.synchronize()
+        counts.append((resize.RESIZE_KERNEL.launches - before[0],
+                       resize.RESIZE_BACKWARD_KERNEL.launches - before[1]))
+    assert counts == [(4, 4), (4, 0)]
+
+
+@pytest.mark.parametrize("variant,overrides", [
+    ("v2", {}), ("oldv", {"enc_chans": (8, 16, 24)})])
+def test_float32_train_step_on_card_repeats_bit_for_bit(card, monkeypatch,
+                                                        variant, overrides):
+    """One float32 train step (TF32 off) run twice from the same weights,
+    batch and generator seed, with cuDNN's deterministic algorithms: every
+    parameter, buffer and Adam moment equal bit for bit. (PyTorch's
+    bilinear upsampling backward, which adds with float32 atomics, made
+    this fail before the port took its own resize kernels.)"""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = get_config(variant, **{**TINY, **overrides})
+    g_sd = state_dict_from_jax(*random_jax_tree(cfg, seed=0), cfg)
+    d_sd = discriminator_state_dict_from_jax(*random_discriminator_tree(1))
+    rng = np.random.default_rng(7)
+    shape = (4, cfg.patch_h, cfg.patch_w)
+    batch = {"ru": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "en": rng.uniform(0, 1, shape + (3,)).astype(np.float32),
+             "mask": (rng.uniform(0, 1, shape + (1,)) > 0.5).astype(
+                 np.float32),
+             "text": rng.integers(1, cfg.vocab_size, (4, cfg.max_text_len))}
+    vgg = VGG16Features().to(card)
+    runs = []
+    for _ in range(2):
+        state = create_train_state(cfg, g_sd, d_sd, device=card)
+        state, _ = build_train_step(cfg)(
+            state, vgg, batch_to_device(batch, card),
+            torch.Generator(device=card).manual_seed(0), 1e-3)
+        tensors = {f"G.{k}": v for k, v in
+                   state.generator.state_dict().items()}
+        tensors.update({f"D.{k}": v for k, v in
+                        state.discriminator.state_dict().items()})
+        for name, opt in (("g", state.opt_g), ("d", state.opt_d)):
+            for i, entry in enumerate(opt.state.values()):
+                tensors.update({f"{name}{i}.{n}": v
+                                for n, v in entry.items()})
+        runs.append(tensors)
+    assert runs[0].keys() == runs[1].keys()
+    for key in runs[0]:
+        assert torch.equal(runs[0][key], runs[1][key]), key
+
+
+def test_resize_custom_ops_on_card(card):
+    """``torch.library.opcheck`` (schema, fake implementation, autograd
+    registration) on both resize ops with CUDA tensors in three layouts."""
+    from vae_gan_mark_tpu_torch.ops import resize
+
+    for layout in ("nchw", "permuted", "channels_last"):
+        x = _resize_input(card, (2, 8, 4, 12), layout).requires_grad_()
+        torch.library.opcheck(resize.resize_bilinear_op, (x, 3, 20))
+    torch.library.opcheck(resize.resize_bilinear_backward_op,
+                          (torch.randn(2, 8, 1, 48, device=card), 1, 12))

@@ -74,13 +74,15 @@ def check_nvcc() -> Tuple[bool, str]:
 
 def check_kernels() -> Tuple[bool, str]:
     """Build every kernel (one nvcc each, in parallel) and load each."""
-    from vae_gan_mark_tpu_torch.ops import conv_probe, gru
+    from vae_gan_mark_tpu_torch.ops import conv_probe, gru, resize
     from vae_gan_mark_tpu_torch.ops.cuda_build import build_all
-    kernels = (gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL)
+    kernels = (gru.KERNEL, gru.BACKWARD_KERNEL, conv_probe.KERNEL,
+               resize.RESIZE_KERNEL, resize.RESIZE_BACKWARD_KERNEL)
     build_all([k.source for k in kernels])
     for kernel in kernels:
         kernel.load()
-    return True, ", ".join(k.source.name for k in kernels) + " built, loaded"
+    names = dict.fromkeys(k.source.name for k in kernels)
+    return True, ", ".join(names) + " built, loaded"
 
 
 def check_writable(path: str) -> Tuple[bool, str]:

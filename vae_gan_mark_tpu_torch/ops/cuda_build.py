@@ -21,7 +21,8 @@ code to its message.
   reading that picks the GRU forward's tile rows). So each kernel object
   serves the first device it is used on (``claim``) and raises for
   another; a data-parallel run has one process per card
-  (``parallel/distributed.py``).
+  (``parallel/distributed.py``). A source with no such state
+  (``csrc/resize_bilinear.cu``) claims no device.
 * ``launch_counts()`` / ``add_launches()`` read and move every kernel's
   count at once: a CUDA graph (``train/graphs.py``) records what its
   capture launched and adds that at each replay, since a replay runs no
@@ -74,12 +75,13 @@ def build_all(sources: Iterable[Path]) -> Dict[Path, Tuple[Path, str]]:
     """Compile each source unless a build of that exact source exists.
 
     Returns {source: (library path, compiler output)}; the output is empty
-    for a source that was not compiled. Raises if any compile fails, after
-    every ``nvcc`` started here has ended."""
+    for a source that was not compiled. A source named twice (two kernel
+    objects of one library) is compiled once. Raises if any compile fails,
+    after every ``nvcc`` started here has ended."""
     results: Dict[Path, Tuple[Path, str]] = {}
     started, failures = [], []
     try:
-        for source in sources:
+        for source in dict.fromkeys(sources):
             lib = library_path(source)
             if lib.exists():
                 results[source] = (lib, "")

@@ -14,11 +14,13 @@ An artifact is a directory:
 The program is ``(ru, mask, text, eps) -> en`` at one batch size, on the
 device it was exported on. The GRU recurrence is one node of it, the
 port's custom op (``ops/gru.py``: the kernel on the card, the plain loop on
-the CPU), so loading an artifact imports ``ops/gru.py`` to register the
-op, and the tokenizer and text embedder, and nothing of ``models/`` or
-``train/``. ``ExportedGenerator.generate`` cuts a request into padded
-chunks with the noise of ``InferenceEngine.generate`` (``serve/chunks.py``),
-so artifact and engine give the same patches for one seed. The switches
+the CPU), and so is each FiLM text-map resize of an artifact exported on
+the card (``ops/resize.py``); loading an artifact imports those two modules
+to register the ops, and the tokenizer and text embedder, and nothing of
+``models/`` or ``train/``. ``ExportedGenerator.generate`` cuts a request
+into padded chunks with the noise of ``InferenceEngine.generate``
+(``serve/chunks.py``), so artifact and engine give the same patches for one
+seed. The switches
 that keep float32 work in true float32 on the card (TF32 off,
 ``ops/precision.py``) are process-wide and not part of a traced program:
 the artifact sets them around each call, as the generator's own forward
@@ -150,8 +152,9 @@ class ExportedGenerator:
     @classmethod
     def load(cls, art_dir: str,
              text_embed_fn: Optional[Callable] = None) -> "ExportedGenerator":
-        # Registers the GRU ops the program calls.
+        # Registers the GRU and resize ops the program calls.
         import vae_gan_mark_tpu_torch.ops.gru  # noqa: F401
+        import vae_gan_mark_tpu_torch.ops.resize  # noqa: F401
         with open(os.path.join(art_dir, MANIFEST_NAME)) as f:
             manifest = json.load(f)
         _card_check(torch.device(manifest["device"]),
