@@ -1318,9 +1318,10 @@ def phase_epoch_driver(gru, card: str, rates: dict) -> dict:
         DeviceResidentSynthetic)
     from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
     from vae_gan_mark_tpu_torch.serve import InferenceEngine
-    from vae_gan_mark_tpu_torch.train.loop import Trainer, make_generator
+    from vae_gan_mark_tpu_torch.train.loop import Trainer
     from vae_gan_mark_tpu_torch.train.schedule import kl_weight_for_epoch
     from vae_gan_mark_tpu_torch.train.state import get_lr
+    from vae_gan_mark_tpu_torch.train.step import make_generator
 
     have = {}
     for module in ("PIL", "cv2"):
@@ -1694,6 +1695,7 @@ def phase_graph_probe(gru) -> dict:
     L=60, B=16, H=256 (both directions of a layer, 8-CTA clusters launched
     with ``cudaLaunchKernelEx``): replays on new inputs against eager
     launches, bit for bit."""
+    from vae_gan_mark_tpu_torch.config import get_config
     from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1721,8 +1723,7 @@ def phase_graph_probe(gru) -> dict:
         return [*outs, *grads]
 
     fwd_bwd(inputs(0))
-    gru.KERNEL.prepare(BATCH, 256)
-    gru.BACKWARD_KERNEL.prepare(BATCH, 256)
+    gru.prepare_capture(get_config("v2"), BATCH, backward=True)   # H=256
     graph = CapturedStep(fwd_bwd, inputs(0))
     recorded = (graph.launches.get(gru.KERNEL, 0),
                 graph.launches.get(gru.BACKWARD_KERNEL, 0))
@@ -1787,7 +1788,7 @@ def phase_multi_step(gru, card: str) -> dict:
     from vae_gan_mark_tpu_torch.train import (
         build_eval_step, build_multi_eval_step, build_multi_train_step,
         build_train_step)
-    from vae_gan_mark_tpu_torch.train.loop import make_generator
+    from vae_gan_mark_tpu_torch.train.step import make_generator
 
     result = dict(probe=phase_graph_probe(gru))
     cfg = get_config("v2", compute_dtype="bfloat16")
@@ -1797,9 +1798,11 @@ def phase_multi_step(gru, card: str) -> dict:
                for i in range(TIMED_STEPS)]
     torch.backends.cudnn.deterministic = True
     try:
-        # One eager group: Adam's state and the signature's warm-up.
-        state, _ = build_multi_train_step(cfg)(state, vgg, batches[:MULTI_K],
-                                               0, 1e-3)
+        # One eager step of the multi step that replays: Adam's state and
+        # the signature's warm-up. A graph stays with the state it was
+        # captured with, so the capture waits for the copy below.
+        multi = build_multi_train_step(cfg)
+        state, _ = multi(state, vgg, batches[:1], 0, 1e-3)
         saved = copy.deepcopy(state)
         eager, sums_e = copy.deepcopy(saved), None
         for batch in batches[:8]:
@@ -1807,7 +1810,7 @@ def phase_multi_step(gru, card: str) -> dict:
                 "cuda", 0, eager.step), 1e-3)
             sums_e = m if sums_e is None else {k: sums_e[k] + m[k]
                                                for k in sums_e}
-        replayed, multi = copy.deepcopy(saved), build_multi_train_step(cfg)
+        replayed = copy.deepcopy(saved)
         torch.cuda.synchronize()
         gru.KERNEL.launches = gru.BACKWARD_KERNEL.launches = 0
         zero_resize_counts()
@@ -1843,11 +1846,12 @@ def phase_multi_step(gru, card: str) -> dict:
             saved, vgg, single, batches[0], cfg)
         del saved
 
-        # The eval step: eager warm-up, then a group of K replays.
+        # The eval step: a group with the eager warm-up and the capture,
+        # then a group of K replays.
         val = batches[8:8 + MULTI_K]
         idxs = list(range(MULTI_K))
-        build_multi_eval_step(cfg)(replayed, vgg, val, idxs, 0, 1e-3)
         multi_eval = build_multi_eval_step(cfg)
+        multi_eval(replayed, vgg, val, idxs, 0, 1e-3)
         got, fake0 = multi_eval(replayed, vgg, val, idxs, 0, 1e-3)
         eval_step = build_eval_step(cfg)
         ref = [eval_step(replayed, vgg, v, make_generator(
@@ -1885,8 +1889,8 @@ def plain_adam_reading(saved, vgg, single, batch, cfg) -> float:
     difference."""
     import copy
 
-    from vae_gan_mark_tpu_torch.train.loop import make_generator
     from vae_gan_mark_tpu_torch.train.state import load_optimizer_state
+    from vae_gan_mark_tpu_torch.train.step import make_generator
 
     after = []
     for plain in (False, True):
@@ -1916,7 +1920,7 @@ def wall_vs_device(state, vgg, cfg, single, batches, card: str) -> dict:
     it) and K = 4, 16 (replays): the host clock over TIMED_STEPS steps, the
     device busy time of one profiled group, the idle share."""
     from vae_gan_mark_tpu_torch.train import build_multi_train_step
-    from vae_gan_mark_tpu_torch.train.loop import make_generator
+    from vae_gan_mark_tpu_torch.train.step import make_generator
 
     rows = {}
     for k in (1, 4, 16):
@@ -2218,7 +2222,8 @@ def phase_vanilla(gru, card: str) -> dict:
     from vae_gan_mark_tpu_torch.serve import InferenceEngine
     from vae_gan_mark_tpu_torch.train import build_multi_train_step
     from vae_gan_mark_tpu_torch.train.graphs import CapturedStep
-    from vae_gan_mark_tpu_torch.train.loop import Trainer, make_generator
+    from vae_gan_mark_tpu_torch.train.loop import Trainer
+    from vae_gan_mark_tpu_torch.train.step import make_generator
 
     cfgs = {name: get_config("vanilla", compute_dtype=name)
             for name in ("bfloat16", "float32")}
@@ -2285,10 +2290,11 @@ def phase_vanilla(gru, card: str) -> dict:
     # steps from one state.
     torch.backends.cudnn.deterministic = True
     try:
-        # One group on a throwaway multi step: its first batch runs eagerly
-        # and warms the signature, the rest replay its graph.
-        state, _ = build_multi_train_step(cfg)(state, vgg,
-                                               batches[:MULTI_K], 0, 1e-3)
+        # One eager step of the multi step that replays: Adam's state and
+        # the signature's warm-up (its graph is captured for the copy
+        # below, the state it stays with).
+        multi = build_multi_train_step(cfg)
+        state, _ = multi(state, vgg, batches[:1], 0, 1e-3)
         saved = copy.deepcopy(state)
         eager, sums_e = copy.deepcopy(saved), None
         for batch in batches[:MULTI_K]:
@@ -2303,8 +2309,8 @@ def phase_vanilla(gru, card: str) -> dict:
         CapturedStep.replay = lambda self, *a: (replays.append(1),
                                                 replay(self, *a))[1]
         try:
-            replayed, sums_g = build_multi_train_step(cfg)(
-                replayed, vgg, batches[:MULTI_K], 0, 1e-3)
+            replayed, sums_g = multi(replayed, vgg, batches[:MULTI_K], 0,
+                                     1e-3)
         finally:
             CapturedStep.replay = replay
         torch.cuda.synchronize()
@@ -2326,7 +2332,7 @@ def phase_vanilla(gru, card: str) -> dict:
           f"{len(replays)} replays")
     result["graph"] = dict(state_max_abs_diff=state_diff,
                            metric_max_abs_diff=metric_diff)
-    del state, vgg, saved, eager, replayed, batches, run
+    del state, vgg, saved, eager, replayed, batches, run, multi
     torch.cuda.empty_cache()
     result["cuda_vs_cpu"] = compare_devices(cfgs["float32"], weights,
                                             one_thread=False,

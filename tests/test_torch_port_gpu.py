@@ -347,8 +347,7 @@ def test_gru_kernels_captured_in_a_graph_replay_as_eager(card):
 
     warm = inputs(1)
     fwd_bwd(warm)
-    gru.KERNEL.prepare(16, 256)
-    gru.BACKWARD_KERNEL.prepare(16, 256)
+    gru.prepare_capture(get_config("v2"), 16, backward=True)   # H=256
     graph = CapturedStep(fwd_bwd, warm)
     assert graph.launches == {gru.KERNEL: 1, gru.BACKWARD_KERNEL: 1}
     for seed in (2, 3):

@@ -54,7 +54,7 @@ from vae_gan_mark_tpu_torch.data.synthetic import SyntheticPatchDataset
 from vae_gan_mark_tpu_torch.models import VGG16Features
 from vae_gan_mark_tpu_torch.models import vaegan as port_vaegan
 from vae_gan_mark_tpu_torch.ops.norms import BatchNorm
-from vae_gan_mark_tpu_torch.train import loop, step as step_module
+from vae_gan_mark_tpu_torch.train import step as step_module
 from vae_gan_mark_tpu_torch.train.loop import Trainer
 from vae_gan_mark_tpu_torch.train.state import (
     create_train_state, init_state_dicts, load_optimizer_state, make_adam)
@@ -135,8 +135,8 @@ def test_multi_step_trainer_equals_sequential(sequential, tmp_path):
 
 
 def recording(monkeypatch):
-    """Record the keys of every generator that the loop and the steps
-    make."""
+    """Record the keys of every generator that the steps make (the loop's
+    eager steps make theirs in ``step.eager_step``)."""
     calls = []
 
     def make_generator(device, *keys):
@@ -144,7 +144,6 @@ def recording(monkeypatch):
         return torch.Generator(device=device).manual_seed(
             step_module.derive_seed(*keys))
 
-    monkeypatch.setattr(loop, "make_generator", make_generator)
     monkeypatch.setattr(step_module, "make_generator", make_generator)
     return calls
 

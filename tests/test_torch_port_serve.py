@@ -16,8 +16,8 @@ import jax.numpy as jnp
 
 from vae_gan_mark_tpu.ops import warp as jax_warp
 from vae_gan_mark_tpu_torch.serve import InferenceEngine
-from vae_gan_mark_tpu_torch.serve.engine import chunk_seed
 from vae_gan_mark_tpu_torch.utils.profiling import recording
+from vae_gan_mark_tpu_torch.utils.seeds import derive_seed
 
 from torch_port_common import TINY, Pair
 
@@ -105,7 +105,7 @@ def test_cpu_engine_never_captures_a_graph(pair):
 
 
 def test_noise_differs_per_chunk_and_seed():
-    assert len({chunk_seed(s, start) for s in range(3)
+    assert len({derive_seed(s, start) for s in range(3)
                 for start in (0, 16, 32)}) == 9
 
 

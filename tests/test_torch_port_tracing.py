@@ -265,7 +265,7 @@ def test_recorder_changes_nothing(tmp_path):
 
 
 @pytest.mark.gpu
-def test_replays_and_captures_are_counted_on_card(tmp_path, monkeypatch):
+def test_replays_and_captures_are_counted_on_card(tmp_path):
     """K=4 on the card, 8 train and 4 val batches, nothing warm: a train
     step eager, the next captured and replayed, six replays; an eval step
     eager, one captured, two replays. Each span's ``kind`` agrees."""
@@ -273,9 +273,7 @@ def test_replays_and_captures_are_counted_on_card(tmp_path, monkeypatch):
         pytest.skip("needs an NVIDIA GPU (sm_90a) and nvcc")
     from vae_gan_mark_tpu_torch.data.device_synthetic import (
         DeviceResidentSynthetic)
-    from vae_gan_mark_tpu_torch.train import graphs
 
-    monkeypatch.setattr(graphs, "_WARM", set())
     card = torch.device("cuda")
     cfg = get_config("v2", **dict(CFG, batch_size=4))
     train = DeviceResidentSynthetic(SyntheticPatchDataset(cfg, 32), 4, 8,

@@ -104,11 +104,10 @@ def main(argv=None):
     from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
     from vae_gan_mark_tpu_torch.ops.precision import torch_dtype
     from vae_gan_mark_tpu_torch.train.checkpoint import load_state_file
-    from vae_gan_mark_tpu_torch.train.loop import make_generator
     from vae_gan_mark_tpu_torch.train.state import (
         create_train_state, vgg_state_dict)
     from vae_gan_mark_tpu_torch.train.step import (
-        batch_to_device, build_eval_step)
+        batch_to_device, build_eval_step, make_generator)
 
     args = build_parser().parse_args(argv)
     overrides = parse_overrides(VariantConfig, args.set)

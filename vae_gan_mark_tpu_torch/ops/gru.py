@@ -24,7 +24,9 @@ direction) and ``BiGRURecurrence`` (both) join forward and backward as
   raises. They are compiled with ``nvcc`` at first use
   (``ops/cuda_build.py``); each launch adds one to ``KERNEL.launches``
   (forward) or ``BACKWARD_KERNEL.launches`` (backward); ``prepare`` does
-  a first launch's host work ahead of a CUDA graph capture. Around the backward
+  a first launch's host work ahead of a CUDA graph capture, and
+  ``prepare_capture`` calls it for the kernels a configuration's step
+  launches. Around the backward
   kernel two products per direction without a sequential dependence go to
   ``torch.matmul``: the gate pre-activations of every step, recomputed from
   the saved outputs before it, and dW_hh after it.
@@ -168,6 +170,18 @@ class CudaGRUBackward(CudaKernel):
 
 KERNEL = CudaGRU()
 BACKWARD_KERNEL = CudaGRUBackward()
+
+
+def prepare_capture(cfg, rows: int, backward: bool) -> None:
+    """Before a CUDA graph capture of a step of configuration ``cfg`` at
+    ``rows`` batch rows: the host work of the GRU kernels that its
+    generator launches, the forward's and, with ``backward``, the
+    backward's. The sbert text path launches none."""
+    if cfg.text_encoder == "sbert":
+        return
+    KERNEL.prepare(rows, cfg.char_rnn_hidden)
+    if backward:
+        BACKWARD_KERNEL.prepare(rows, cfg.char_rnn_hidden)
 
 
 def _check(x_proj: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,

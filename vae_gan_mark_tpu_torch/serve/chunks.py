@@ -6,7 +6,7 @@ A request of N rows goes through in chunks of ``batch_size``; the last one
 is padded with zero images and empty texts, and its padding is cut from
 the output. The noise of the chunk that starts at request row ``start`` is
 drawn on the CPU from a ``torch.Generator`` seeded from ``(seed, start)``
-(the counterpart of the JAX package's ``fold_in(rng, start)``), so one seed
+(``utils/seeds.py``; the counterpart of the JAX package's ``fold_in(rng, start)``), so one seed
 gives the same noise on every device.
 
 Each chunk's ``encode`` and padding run in a ``serve.encode`` span and its
@@ -23,19 +23,14 @@ import numpy as np
 import torch
 
 from vae_gan_mark_tpu_torch.utils.profiling import count, span
-
-
-def chunk_seed(seed: int, start: int) -> int:
-    """A 63-bit seed for the chunk starting at request row ``start``."""
-    state = np.random.SeedSequence([seed, start]).generate_state(2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
+from vae_gan_mark_tpu_torch.utils.seeds import derive_seed
 
 
 def chunk_noise(seed: int, start: int, batch_size: int,
                 z_ch: int) -> torch.Tensor:
     """The (batch_size, 1, 1, z_ch) float32 noise of the chunk at
     ``start``, on the CPU."""
-    gen = torch.Generator().manual_seed(chunk_seed(seed, start))
+    gen = torch.Generator().manual_seed(derive_seed(seed, start))
     return torch.randn((batch_size, 1, 1, z_ch), generator=gen,
                        dtype=torch.float32)
 

@@ -14,23 +14,19 @@ inside it each chunk's copies to the device, the generator's forward and
 the copy back are the spans ``serve.copy_in``, ``serve.forward`` and
 ``serve.copy_out``, beside ``serve/chunks.py``'s.
 
-On a CUDA device the generator's forward is a CUDA graph
-(``train/graphs.py:CapturedStep``). An engine's first chunk of a batch
-signature (the keys, shapes and dtypes of ``ru``, ``mask``, ``text`` and
-``eps``) runs eagerly; its second is captured (after the GRU kernels' host
-work, ``ops/gru.py:CudaGRU.prepare``, where the generator launches them)
-and replayed; every later chunk copies its host arrays into the graph's
-inputs and replays it. A replay's output is read back to the host before
-the next chunk runs, and one lock serialises the chunks, so threads that
-share an engine never interleave on the graph's buffers. A chunk runs with
-the engine's card as the current device, so that the capture records the
-launches of an engine on any card; a capture that records nothing (one on
-another card's stream: PyTorch's capture stream is one a process) raises.
-One signature is captured; a chunk of another one runs eagerly. On the CPU
-every chunk runs eagerly, without the lock. The ``serve.forward`` span's ``kind`` is ``eager``, ``capture``
-or ``replay``; the counters ``serve.forwards_eager`` and
-``serve.forwards_replayed`` count the chunks, ``serve.graph_captures`` the
-captures.
+On a CUDA device the generator's forward is replayed as a CUDA graph, as
+``train/graphs.py:Replayer`` decides: an engine's first chunk of a batch
+signature runs eagerly, its second is captured, and every later chunk
+copies its host arrays into the graph's inputs (in ``serve.copy_in``) and
+replays it (in ``serve.forward``). A replay's output is read back to the
+host before the next chunk runs, and one lock serialises the chunks, so
+threads that share an engine never interleave on the graph's buffers. A
+chunk runs with the engine's card as the current device, so that the
+capture records the launches of an engine on any card. On the CPU every
+chunk runs eagerly, without the lock. The ``serve.forward`` span's
+``kind`` is ``eager``, ``capture`` or ``replay``; the counters
+``serve.forwards_eager`` and ``serve.forwards_replayed`` count the chunks,
+``serve.graph_captures`` the captures.
 
 ``InferenceEngine.from_checkpoint`` serves the generator of a trainer's
 checkpoint (``train/checkpoint.py``); ``python -m vae_gan_mark_tpu_torch.serve``
@@ -41,7 +37,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import warnings
 from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -52,14 +47,10 @@ from vae_gan_mark_tpu_torch.data import as_batch_tensor
 from vae_gan_mark_tpu_torch.data.text_embed import encode_texts
 from vae_gan_mark_tpu_torch.data.tokenizer import CharTokenizer
 from vae_gan_mark_tpu_torch.models.vaegan import VAEGANGenerator
-from vae_gan_mark_tpu_torch.ops import gru
-from vae_gan_mark_tpu_torch.ops.cuda_build import add_launches
 from vae_gan_mark_tpu_torch.ops.warp import (
     perspective_crop_batch, perspective_unwarp)
-from vae_gan_mark_tpu_torch.serve.chunks import (  # noqa: F401 (chunk_seed)
-    chunk_noise, chunk_seed, generate_in_chunks)
-from vae_gan_mark_tpu_torch.train.graphs import (
-    CapturedStep, Signature, batch_signature)
+from vae_gan_mark_tpu_torch.serve.chunks import chunk_noise, generate_in_chunks
+from vae_gan_mark_tpu_torch.train.graphs import Replayer
 from vae_gan_mark_tpu_torch.utils.profiling import count, span
 
 Batch = Dict[str, torch.Tensor]
@@ -84,12 +75,9 @@ class InferenceEngine:
     embeds the texts for the sbert text path; without it they go through
     ``hash_embed``.
 
-    On a CUDA device the first chunk of a signature runs eagerly, the
-    second is captured as a CUDA graph and every later one replays it
-    (read back before the next chunk); ``serve.forwards_eager``,
-    ``serve.forwards_replayed`` and ``serve.graph_captures`` count them.
-    One lock serialises the chunks of all threads, each run with the
-    engine's card as the current device.
+    On a CUDA device the forward is replayed as a CUDA graph (the module's
+    docstring). One lock serialises the chunks of all threads, each run
+    with the engine's card as the current device.
     """
 
     def __init__(self, cfg: VariantConfig,
@@ -113,15 +101,8 @@ class InferenceEngine:
             model = VAEGANGenerator(cfg)
             model.load_state_dict(weights)
         self.model = model.to(self.device).eval()
-        # The GRU kernels' host work is done before a capture, for configs
-        # whose generator runs them (the char text paths).
-        self._gru_hidden = (cfg.char_rnn_hidden
-                            if cfg.text_encoder != "sbert" else None)
-        # The signature of this engine's first eager chunk on the card: a
-        # capture needs one such run first (``train/graphs.py``). Kept per
-        # engine, so that each engine's first chunk runs eagerly.
-        self._eager_signature: Optional[Signature] = None
-        self._graph: Optional[CapturedStep] = None
+        self._replayer = Replayer(cfg, "serve.graph_captures",
+                                  "the generator's forward")
         self._lock = threading.Lock()
 
     @classmethod
@@ -171,30 +152,6 @@ class InferenceEngine:
                                  eps=batch["eps"])
         return recon
 
-    def _capture(self, batch: Batch) -> CapturedStep:
-        """The forward on ``batch`` (device tensors) captured as a CUDA
-        graph whose inputs hold ``batch``; raises if the capture recorded
-        no launch, which PyTorch only warns of."""
-        if self._gru_hidden is not None:
-            gru.KERNEL.prepare(batch["ru"].shape[0], self._gru_hidden)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            graph = CapturedStep(
-                lambda inputs, generator, kl_weight: self._forward(inputs),
-                batch)
-        for w in caught:
-            if "CUDA Graph is empty" in str(w.message):
-                raise RuntimeError(
-                    f"the capture of the generator's forward on "
-                    f"{self.device} recorded nothing: was it made on another "
-                    f"card's stream? (PyTorch keeps one capture stream a "
-                    f"process: serve one card a process)")
-            warnings.warn_explicit(w.message, w.category, w.filename,
-                                   w.lineno)
-        self._graph = graph
-        count("serve.graph_captures")
-        return graph
-
     @contextlib.contextmanager
     def _on_card(self) -> Iterator[None]:
         """One chunk at a time, with the engine's card as the current
@@ -212,32 +169,20 @@ class InferenceEngine:
                 host = {"ru": _host_tensor(ru), "mask": _host_tensor(mask),
                         "text": as_batch_tensor("text", _host_tensor(text)),
                         "eps": eps}
-                graph = self._graph
-                if graph is not None and not graph.fits(host):
-                    graph = None
-                if graph is not None:
-                    for key, static in graph.inputs.items():
-                        static.copy_(host[key])
-                    batch = graph.inputs
-                else:
+                batch = self._replayer.load(host)
+                if batch is None:
                     batch = {k: v.to(self.device) for k, v in host.items()}
             with span("serve.forward") as sp:
-                kind = "eager" if graph is None else "replay"
-                if kind == "eager" and self._graph is None and \
-                        batch_signature(batch) == self._eager_signature:
-                    graph, kind = self._capture(batch), "capture"
+                graph, kind = self._replayer.get(
+                    batch, lambda inputs, generator, kl: self._forward(inputs))
                 sp.set(kind=kind)
                 if graph is None:
                     count("serve.forwards_eager")
                     recon = self._forward(batch)
-                    if self.device.type == "cuda" and \
-                            self._eager_signature is None:
-                        self._eager_signature = batch_signature(batch)
+                    self._replayer.note_eager(batch)
                 else:
                     count("serve.forwards_replayed")
-                    graph.graph.replay()
-                    add_launches(graph.launches)
-                    recon = graph.outputs
+                    recon = graph.run()
             with span("serve.copy_out"):
                 return recon.cpu().numpy()
 

@@ -1,56 +1,60 @@
-"""CUDA-graph replay of a step: the port's counterpart of the JAX package's
-``multi_step``, which runs K steps in one dispatch with ``lax.scan``
-(``train/step.py:build_multi_train_step``). A train step is some 3,000
-kernel launches whose dispatch costs more host time than the card needs
-for them at batch 16; a replay of a captured graph costs one call.
+"""CUDA-graph replay of a step, and the one policy of when a step is
+captured and replayed, for the multi steps (``train/step.py``, the port's
+counterpart of the JAX package's ``lax.scan`` multi step) and the serving
+engine (``serve/engine.py``). A train step is some 3,000 kernel launches
+whose dispatch costs more host time than the card needs for them at batch
+16; a replay of a captured graph costs one call. ONE step is captured and
+replayed K times, not K steps as one graph, which would need K input slots
+and K generators and hold K steps' activations.
 
-The design: ONE step is captured and replayed K times, not K steps as one
-graph. A K-step graph would need K input slots and K generators, its
-capture would run K steps' Python, and it would hold K steps' activations;
-a replay a step already removes the dispatch cost (about ten launches a
-step stay: the input copies, the reseed, the KL weight, the metric sums).
+``CapturedStep(fn, batch, what)`` captures ``fn(inputs, generator,
+kl_weight)`` on static copies of ``batch`` (``inputs``), a
+``torch.Generator`` registered with the graph and a float32 0-d KL weight.
+``load(batch)`` copies a batch of the same signature (keys, shapes,
+dtypes) into the inputs; ``run(seed, kl_weight)`` reseeds the generator (a
+replay then draws what an eager step draws from a fresh generator of that
+seed), fills the KL weight, replays, and returns ``outputs``, which the
+next replay overwrites; ``replay`` is ``load`` then ``run``. Capture runs
+``fn``'s Python once and executes nothing, so host state it moves is put
+back: the kernels' launch counts here (each replay adds what the capture
+launched, ``ops/cuda_build.py:add_launches``), the train state's step count
+by the caller. The capture is ``thread_local``, so the prefetch thread may
+use the card meanwhile. A capture that records nothing raises (PyTorch
+only warns): its launches went to the stream of a card that is not the
+current device, and a replay would hand back stale outputs. Nothing falls
+back to eager steps on a failure.
 
-``CapturedStep(fn, batch)`` captures ``fn(inputs, generator, kl_weight)``:
+``Replayer`` is the policy, one per multi step and per engine:
 
-* ``inputs``: static copies of ``batch`` (``ru``, ``en``, ``mask``,
-  ``text``, and ``eps`` when given); a replay first copies the next
-  batch's tensors into them, device to device. A batch of another
-  signature (a short last batch) does not fit the graph.
-* ``generator``: a ``torch.Generator`` registered with the graph
-  (``CUDAGraph.register_generator_state``) and reseeded before each
-  replay, so a replay draws the noise and dropout masks that an eager step
-  draws from a fresh generator of that seed.
-* ``kl_weight``: a float32 0-d tensor filled before each replay (it
-  changes every epoch under KL annealing).
-* ``outputs``: what ``fn`` returned during capture; each replay overwrites
-  them, so a caller reads them before the next replay.
-
-Capture runs ``fn``'s Python once and executes nothing on the card, so host
-state that ``fn`` moves is put back: the kernels' launch counts here, the
-train state's step count by the caller. Each replay adds what the capture
-launched to the counts (``ops/cuda_build.py:add_launches``). The capture
-is ``thread_local``: the prefetch thread may copy and gather on the card
-meanwhile. A failed capture or replay raises; nothing falls back to eager
-steps.
-
-Before a capture a step of the same kind and batch signature must have run
-eagerly on that device in this process (``mark_warm`` / ``is_warm``): that
-run builds what a capture cannot (cuBLAS and cuDNN handles, the ops' device
-constants, the kernels' first-launch host work).
+* a step on a batch off the card runs eagerly;
+* a signature is warm once the owner ran a step of it eagerly on the card
+  and said so (``note_eager``): that run builds what a capture cannot
+  (cuBLAS and cuDNN handles, the ops' device constants, the kernels'
+  first-launch host work). So the first step of each signature that a
+  multi step or engine runs is eager;
+* a replayer holds one graph: at the first warm batch while it has none,
+  once the owner is ``ready()`` (for training, both Adams hold state, so
+  that the capture does not record their lazy initialisation), the GRU
+  kernels the configuration launches do their host work
+  (``ops/gru.py:prepare_capture``), the step is captured, and the counter
+  the owner named (``serve.graph_captures``, ``train.graph_captures``)
+  adds one;
+* a batch that does not fit the graph runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Mapping, Set, Tuple
+import warnings
+from typing import Callable, Dict, Mapping, Optional, Set, Tuple
 
 import torch
 
+from vae_gan_mark_tpu_torch.ops import gru
 from vae_gan_mark_tpu_torch.ops.cuda_build import add_launches, launch_counts
+from vae_gan_mark_tpu_torch.utils.profiling import count
 
 Batch = Mapping[str, torch.Tensor]
 Signature = Tuple[Tuple[str, Tuple[int, ...], torch.dtype], ...]
-
-_WARM: Set[Tuple[Hashable, torch.device, Signature]] = set()
 
 
 def batch_signature(batch: Batch) -> Signature:
@@ -58,20 +62,11 @@ def batch_signature(batch: Batch) -> Signature:
     return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
 
 
-def mark_warm(kind: Hashable, batch: Batch) -> None:
-    """A ``kind`` step ran eagerly on ``batch``'s device and signature."""
-    _WARM.add((kind, batch["ru"].device, batch_signature(batch)))
-
-
-def is_warm(kind: Hashable, batch: Batch) -> bool:
-    return (kind, batch["ru"].device, batch_signature(batch)) in _WARM
-
-
 class CapturedStep:
-    """One call of ``fn(inputs, generator, kl_weight)`` captured as a CUDA
-    graph on ``batch``'s device; ``replay`` runs it on another batch."""
+    """``fn(inputs, generator, kl_weight)`` captured as a CUDA graph on
+    ``batch``'s device; ``what`` names it in an error."""
 
-    def __init__(self, fn: Callable, batch: Batch):
+    def __init__(self, fn: Callable, batch: Batch, what: str = "the step"):
         device = batch["ru"].device
         self.signature = batch_signature(batch)
         self.inputs: Dict[str, torch.Tensor] = {
@@ -82,30 +77,98 @@ class CapturedStep:
         self.graph.register_generator_state(self.generator)
         before = launch_counts()
         try:
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
-                self.outputs = fn(self.inputs, self.generator,
-                                  self.kl_weight)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with torch.cuda.graph(self.graph,
+                                      capture_error_mode="thread_local"):
+                    self.outputs = fn(self.inputs, self.generator,
+                                      self.kl_weight)
         finally:
             after = launch_counts()
             add_launches({k: before[k] - after[k] for k in before})
+        for w in caught:
+            if "CUDA Graph is empty" in str(w.message):
+                raise RuntimeError(
+                    f"the capture of {what} on {device} recorded nothing: "
+                    f"was it made on another card's stream? (PyTorch keeps "
+                    f"one capture stream a process: use one card a "
+                    f"process)")
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
         self.launches = {k: after[k] - before[k] for k in before
                          if after[k] != before[k]}
 
     def fits(self, batch: Batch) -> bool:
         return batch_signature(batch) == self.signature
 
-    def replay(self, batch: Batch, seed: int, kl_weight: float):
-        """Copy ``batch`` into the inputs, seed the generator, set the KL
-        weight, replay; returns the outputs (overwritten by the next
-        replay)."""
-        if not self.fits(batch):
-            raise ValueError(f"a batch of signature {batch_signature(batch)}"
-                             f" does not fit a graph of {self.signature}")
+    def load(self, batch: Batch) -> None:
+        """Copy ``batch`` (which fits) into the inputs."""
         for key, static in self.inputs.items():
             static.copy_(batch[key])
-        self.generator.manual_seed(seed)
-        self.kl_weight.fill_(kl_weight)
+
+    def run(self, seed: Optional[int] = None,
+            kl_weight: Optional[float] = None):
+        """Reseed and set the KL weight where given, replay; the outputs."""
+        if seed is not None:
+            self.generator.manual_seed(seed)
+        if kl_weight is not None:
+            self.kl_weight.fill_(kl_weight)
         self.graph.replay()
         add_launches(self.launches)
         return self.outputs
+
+    def replay(self, batch: Batch, seed: int, kl_weight: float):
+        """``load(batch)``, then ``run(seed, kl_weight)``."""
+        if not self.fits(batch):
+            raise ValueError(f"a batch of signature {batch_signature(batch)}"
+                             f" does not fit a graph of {self.signature}")
+        self.load(batch)
+        return self.run(seed, kl_weight)
+
+
+class Replayer:
+    """The module's policy for the steps of configuration ``cfg`` (with the
+    GRU's backward when ``backward``), its capture counted in ``counter``."""
+
+    def __init__(self, cfg, counter: str, what: str = "the step",
+                 backward: bool = False):
+        self.cfg = cfg
+        self.counter = counter
+        self.what = what
+        self.backward = backward
+        self.graph: Optional[CapturedStep] = None
+        self._warm: Set[Signature] = set()
+
+    def note_eager(self, batch: Batch) -> None:
+        """A step ran eagerly on ``batch``."""
+        if batch["ru"].device.type == "cuda":
+            self._warm.add(batch_signature(batch))
+
+    def load(self, batch: Batch) -> Optional[Dict[str, torch.Tensor]]:
+        """The graph's inputs with ``batch`` copied in, where there is a
+        graph and ``batch`` fits it; else None."""
+        if self.graph is None or not self.graph.fits(batch):
+            return None
+        self.graph.load(batch)
+        return self.graph.inputs
+
+    def get(self, batch: Batch, capture: Callable,
+            ready: Callable[[], bool] = lambda: True
+            ) -> Tuple[Optional[CapturedStep], str]:
+        """(the graph for a step on ``batch``, captured from ``capture``
+        now if the policy says so, or None for an eager step; the step's
+        kind: ``eager``, ``capture`` or ``replay``)."""
+        if batch["ru"].device.type != "cuda":
+            return None, "eager"
+        if self.graph is None:
+            if batch_signature(batch) not in self._warm or not ready():
+                return None, "eager"
+            gru.prepare_capture(self.cfg, batch["ru"].shape[0],
+                                self.backward)
+            self.graph = CapturedStep(capture, batch, self.what)
+            count(self.counter)
+            return self.graph, "capture"
+        # A batch loaded into the inputs fits them.
+        if batch is not self.graph.inputs and not self.graph.fits(batch):
+            return None, "eager"
+        return self.graph, "replay"

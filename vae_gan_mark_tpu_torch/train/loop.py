@@ -20,9 +20,10 @@ With ``multi_step=K > 1`` the train batches go in groups of K through
 ``train/graphs.py``), as the JAX Trainer's ``multi_step`` does: K steps
 equal K single steps, a trailing group of fewer than K batches runs as
 single steps, val batches keep their global indices, and the val triplets
-come from val batch 0 only. The epoch's metric sums are the single-step
-driver's bit for bit (each group adds its K steps' metrics, K times their
-mean, one by one).
+come from val batch 0 only. The single steps (``train/step.py:eager_step``)
+warm no multi step's graph, so a trailing group is never captured. The
+epoch's metric sums are the single-step driver's bit for bit (each group
+adds its K steps' metrics, K times their mean, one by one).
 
 A new ``Trainer`` on a workdir with a ``last_checkpoint`` resumes after its
 epoch. Randomness does not live in the state: train step ``s`` draws its
@@ -88,8 +89,8 @@ from vae_gan_mark_tpu_torch.train.state import (
     vgg_state_dict as default_vgg_state_dict)
 from vae_gan_mark_tpu_torch.train.step import (
     build_eval_step, build_multi_eval_step, build_multi_train_step,
-    build_train_step, make_generator)
-from vae_gan_mark_tpu_torch.utils.profiling import count, span, trace
+    build_train_step, eager_step)
+from vae_gan_mark_tpu_torch.utils.profiling import span, trace
 
 DataSource = Callable[[int], Iterator[dict]]
 StateDict = Mapping[str, torch.Tensor]
@@ -291,11 +292,9 @@ class Trainer:
 
     def _single_train_step(self, batch: dict, kl_w: float,
                            sums: Optional[dict]) -> dict:
-        with span("train.step", kind="eager"):
-            count("train.steps_eager")
-            gen = make_generator(self.device, self.seed, self.state.step)
-            self.state, metrics = self.train_step(self.state, self.vgg,
-                                                  batch, gen, kl_w)
+        self.state, metrics = eager_step(
+            "train.step", self.train_step, self.state, self.vgg, batch,
+            (self.seed, self.state.step), kl_w)
         return metrics if sums is None else {
             k: sums[k] + metrics[k] for k in sums}
 
@@ -349,10 +348,9 @@ class Trainer:
             return self._validate_single(epoch, kl_w)
 
     def _eager_eval_step(self, batch: dict, idx: int, kl_w: float):
-        with span("train.eval_step", kind="eager"):
-            count("train.steps_eager")
-            return self.eval_step(self.state, self.vgg, batch, make_generator(
-                self.device, self.seed, idx, self.state.step), kl_w)
+        return eager_step("train.eval_step", self.eval_step, self.state,
+                          self.vgg, batch, (self.seed, idx, self.state.step),
+                          kl_w)
 
     def _validate_single(self, epoch: int, kl_w: float) -> dict:
         sums, n_samples = None, 0

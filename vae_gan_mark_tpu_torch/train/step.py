@@ -34,16 +34,14 @@ steps per call (the JAX package's ``multi_step``). K steps equal K single
 steps: step ``s`` draws from a generator seeded from ``(seed, s)``, val
 batch ``i`` after step ``s`` from ``(seed, i, s)``, as the epoch driver's
 single steps do. On the card each step is a replay of a CUDA graph of the
-single step (``train/graphs.py``), captured at the first call that finds
-the step warm (run eagerly on that batch signature in this process) and,
-for training, both Adams' state present; until then, and for a batch that
-does not fit the graph, the steps run eagerly. On the CPU they always run
-eagerly. ``kl_weight`` may be a float or a 0-d float32 tensor: the step
-multiplies by it either way, with the same result for a float32 value.
-Each of their steps is a ``train.step`` or ``train.eval_step`` span whose
-``kind`` says which of these it was (``utils/profiling.py``), and adds to
-``train.steps_eager`` or ``train.steps_replayed``; a capture adds to
-``train.graph_captures``.
+single step as ``train/graphs.py:Replayer`` decides (for training, once
+both Adams hold state); on the CPU the steps run eagerly, as every eager
+step does, here or in the epoch driver, through ``eager_step``.
+``kl_weight`` may be a float or a 0-d float32 tensor, with the same result
+for a float32 value. Each step is a ``train.step`` or ``train.eval_step``
+span whose ``kind`` is ``eager``, ``capture`` or ``replay``
+(``utils/profiling.py``), and adds to ``train.steps_eager`` or
+``train.steps_replayed``; a capture adds to ``train.graph_captures``.
 
 Precision: G's convolutions run in the compute dtype. The discriminator
 computes in float32 in both modes, as the JAX package's does, and the JAX
@@ -77,7 +75,8 @@ A batch is a dict of tensors on one device: ``ru``, ``en`` (B, H, W, 3),
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (
+    Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -90,23 +89,15 @@ from vae_gan_mark_tpu_torch.losses import (
     perceptual_loss)
 from vae_gan_mark_tpu_torch.models.vgg import VGG16Features
 from vae_gan_mark_tpu_torch.ops.precision import precision_scope, torch_dtype
-from vae_gan_mark_tpu_torch.ops import gru
 from vae_gan_mark_tpu_torch.parallel import mesh
-from vae_gan_mark_tpu_torch.train.graphs import (
-    CapturedStep, is_warm, mark_warm)
+from vae_gan_mark_tpu_torch.train.graphs import Replayer
 from vae_gan_mark_tpu_torch.train.state import (
     TrainState, clip_by_global_norm_)
 from vae_gan_mark_tpu_torch.utils.profiling import count, span
+from vae_gan_mark_tpu_torch.utils.seeds import derive_seed
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
-
-
-def derive_seed(*keys: int) -> int:
-    """A 63-bit seed from a tuple of non-negative integers."""
-    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(
-        2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
 
 
 def make_generator(device: torch.device, *keys: int) -> torch.Generator:
@@ -226,13 +217,6 @@ def build_eval_step(cfg: VariantConfig):
     return step
 
 
-def _refuse_process_group() -> None:
-    if mesh.active():
-        raise RuntimeError("multi_step > 1 runs one process without a "
-                           "process group (as the JAX package's multi step "
-                           "runs one process); use multi_step=1")
-
-
 def _adam_ready(state: TrainState) -> bool:
     """Both Adams hold state for every parameter they update: a capture
     must not record their lazy initialisation."""
@@ -240,48 +224,58 @@ def _adam_ready(state: TrainState) -> bool:
                for group in opt.param_groups for p in group["params"])
 
 
-class _Replay:
-    """The graph of one multi step: captured once, for the state and VGG
-    it was captured with and one batch signature."""
+def eager_step(name: str, fn: Callable, state: TrainState,
+               vgg: VGG16Features, batch: Batch, keys: Tuple[int, ...],
+               kl_weight):
+    """``fn(state, vgg, batch, generator, kl_weight)`` with a generator
+    seeded from ``keys``, as a ``name`` span of kind ``eager``."""
+    with span(name, kind="eager"):
+        count("train.steps_eager")
+        return fn(state, vgg, batch, make_generator(batch["ru"].device,
+                                                    *keys), kl_weight)
 
-    def __init__(self, kind: str, cfg: VariantConfig):
-        self.kind = kind
-        # The GRU kernels' host work is done before a capture, for configs
-        # whose generator runs them (the char text paths).
-        self.hidden = (cfg.char_rnn_hidden if cfg.text_encoder != "sbert"
-                       else None)
-        self.graph: Optional[CapturedStep] = None
-        self.owner: Tuple = ()
 
-    def get(self, state: TrainState, vgg: VGG16Features, batch: Batch,
-            capture) -> Tuple[Optional[CapturedStep], str]:
-        """(the graph for this call, captured now with ``capture`` if the
-        step is warm (and, for training, Adam's state is there), or None
-        when the call runs eagerly; the call's kind: ``eager``, ``capture``
-        or ``replay``)."""
-        if batch["ru"].device.type != "cuda":
-            return None, "eager"
-        kind = "replay"
-        if self.graph is None:
-            if not is_warm(self.kind, batch) or (
-                    self.kind == "train" and not _adam_ready(state)):
-                return None, "eager"
-            rows = batch["ru"].shape[0]
-            if self.hidden is not None:
-                gru.KERNEL.prepare(rows, self.hidden)
-                if self.kind == "train":
-                    gru.BACKWARD_KERNEL.prepare(rows, self.hidden)
-            self.graph = CapturedStep(capture, batch)
-            self.owner = (state, vgg)
-            count("train.graph_captures")
-            kind = "capture"
-        if self.owner[0] is not state or self.owner[1] is not vgg:
-            raise ValueError("this multi step's graph was captured for "
-                             "another train state; build a new multi step "
-                             "for this one")
-        if not self.graph.fits(batch):
-            return None, "eager"
-        return self.graph, kind
+def _multi_step(name: str, cfg: VariantConfig, single: Callable,
+                backward: bool):
+    """The loop of both multi steps: ``run(state, vgg, batches, keys,
+    kl_weight, capture, ready)`` yields, batch by batch, ``single``'s
+    outputs (batch ``j``'s generator seeded from ``(*keys[j],
+    state.step)``) and whether a replay made them, which the next replay
+    overwrites. The graph stays with the state and VGG it was captured
+    with."""
+    replayer = Replayer(cfg, "train.graph_captures", f"the step of {name}",
+                        backward)
+    owner: List = []
+
+    def run(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
+            keys: Sequence[Tuple[int, ...]], kl_weight, capture: Callable,
+            ready: Callable[[], bool] = lambda: True
+            ) -> Iterator[Tuple[object, bool]]:
+        if mesh.active():
+            raise RuntimeError("multi_step > 1 runs one process without a "
+                               "process group (as the JAX package's multi "
+                               "step runs one process); use multi_step=1")
+        for batch, key in zip(batches, keys):
+            graph, kind = replayer.get(batch, capture, ready)
+            if kind == "capture":
+                owner[:] = [state, vgg]
+            if replayer.graph is not None and (owner[0] is not state
+                                               or owner[1] is not vgg):
+                raise ValueError("this multi step's graph was captured for "
+                                 "another train state; build a new multi "
+                                 "step for this one")
+            if graph is None:
+                out = eager_step(name, single, state, vgg, batch,
+                                 (*key, state.step), kl_weight)
+                replayer.note_eager(batch)
+                yield out, False
+            else:
+                with span(name, kind=kind):
+                    count("train.steps_replayed")
+                    yield graph.replay(batch, derive_seed(*key, state.step),
+                                       kl_weight), True
+
+    return run
 
 
 def build_multi_train_step(cfg: VariantConfig):
@@ -293,39 +287,26 @@ def build_multi_train_step(cfg: VariantConfig):
     returns and its epoch driver weights by K, and an epoch's sums are the
     sequential driver's bit for bit."""
     single = build_train_step(cfg)
-    replay = _Replay("train", cfg)
+    run = _multi_step("train.step", cfg, single, backward=True)
 
     def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
              seed: int, kl_weight,
              sums: Optional[Metrics] = None) -> Tuple[TrainState, Metrics]:
-        _refuse_process_group()
-
         def capture(inputs, generator, kl):
             step0 = state.step
-            _, metrics = single(state, vgg, inputs, generator, kl)
+            out = single(state, vgg, inputs, generator, kl)
             state.step = step0
-            return metrics
+            return out
 
-        for batch in batches:
-            with span("train.step") as sp:
-                graph, kind = replay.get(state, vgg, batch, capture)
-                sp.set(kind=kind)
-                if graph is not None:
-                    count("train.steps_replayed")
-                    metrics = graph.replay(
-                        batch, derive_seed(seed, state.step), kl_weight)
-                    state.step += 1
-                else:
-                    count("train.steps_eager")
-                    device = batch["ru"].device
-                    state, metrics = single(state, vgg, batch, make_generator(
-                        device, seed, state.step), kl_weight)
-                    if device.type == "cuda":
-                        mark_warm("train", batch)
-                # A replay's outputs are overwritten by the next replay.
-                sums = ({k: v.clone() for k, v in metrics.items()}
-                        if sums is None
-                        else {k: sums[k] + metrics[k] for k in sums})
+        for (state, metrics), replayed in run(
+                state, vgg, batches, [(seed,)] * len(batches), kl_weight,
+                capture, lambda: _adam_ready(state)):
+            if replayed:
+                state.step += 1
+            # A replay's outputs are overwritten by the next replay.
+            sums = ({k: v.clone() for k, v in metrics.items()}
+                    if sums is None
+                    else {k: sums[k] + metrics[k] for k in sums})
         return state, sums
 
     return step
@@ -339,38 +320,23 @@ def build_multi_eval_step(cfg: VariantConfig):
     ``fake0`` the first batch's generated patches, as the JAX package's
     multi eval step returns them."""
     single = build_eval_step(cfg)
-    replay = _Replay("eval", cfg)
+    run = _multi_step("train.eval_step", cfg, single, backward=False)
 
     def step(state: TrainState, vgg: VGG16Features, batches: Sequence[Batch],
              idxs: Sequence[int], seed: int, kl_weight
              ) -> Tuple[List[Metrics], torch.Tensor]:
-        _refuse_process_group()
-
         def capture(inputs, generator, kl):
             return single(state, vgg, inputs, generator, kl)
 
         out, fake0 = [], None
-        for batch, idx in zip(batches, idxs):
-            with span("train.eval_step") as sp:
-                graph, kind = replay.get(state, vgg, batch, capture)
-                sp.set(kind=kind)
-                if graph is not None:
-                    count("train.steps_replayed")
-                    metrics, fake = graph.replay(
-                        batch, derive_seed(seed, idx, state.step), kl_weight)
-                    metrics = {k: v.clone() for k, v in metrics.items()}
-                    if fake0 is None:
-                        fake0 = fake.clone()
-                else:
-                    count("train.steps_eager")
-                    device = batch["ru"].device
-                    metrics, fake = single(state, vgg, batch, make_generator(
-                        device, seed, idx, state.step), kl_weight)
-                    if device.type == "cuda":
-                        mark_warm("eval", batch)
-                    if fake0 is None:
-                        fake0 = fake
-            out.append(metrics)
+        for (metrics, fake), replayed in run(
+                state, vgg, batches, [(seed, idx) for idx in idxs],
+                kl_weight, capture):
+            # A replay's outputs are overwritten by the next replay.
+            if fake0 is None:
+                fake0 = fake.clone() if replayed else fake
+            out.append({k: v.clone() for k, v in metrics.items()}
+                       if replayed else metrics)
         return out, fake0
 
     return step
